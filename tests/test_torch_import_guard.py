@@ -1,0 +1,96 @@
+"""The port stands alone: no JAX, no flax, nothing of ``pnnp_tpu``; and its
+entry points refuse to fall back to the CPU silently."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import yaml
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pnnp_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    """Exact top-level match: ``pnnp_tpu`` and ``pnnp_tpu.x`` are forbidden,
+    ``pnnp_tpu_torch`` is not."""
+    return module.split(".")[0] in FORBIDDEN
+
+
+def _port_files():
+    files = sorted((ROOT / "pnnp_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+                and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_forbidden_matcher_is_exact():
+    assert _forbidden("pnnp_tpu") and _forbidden("pnnp_tpu.kernels.ssim")
+    assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert not _forbidden("pnnp_tpu_torch") and not _forbidden("pnnp_tpu_torch.trainer")
+    assert not _forbidden("jaxtyping_like") and not _forbidden("torch")
+
+
+def test_no_forbidden_import_in_sources():
+    files = _port_files()
+    assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
+           if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_forbidden_module():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import pnnp_tpu_torch, pnnp_tpu_torch.trainer, pnnp_tpu_torch.kernels.ssim\n"
+        "import pnnp_tpu_torch.data.fixtures, pnnp_tpu_torch.kernels.build\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
+        "assert 'pnnp_tpu_torch.trainer' in new\n"
+        "print('BAD', bad)\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """No CUDA and no explicit device='cpu': the Trainer and the CLI raise
+    instead of running on the host."""
+    import torch
+
+    from pnnp_tpu_torch.data.fixtures import make_sid_fixture, make_sid_runfile
+    from pnnp_tpu_torch.trainer import Trainer, main
+    from pnnp_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    make_sid_fixture(tmp_path, n_scenes=2, H=32, W=48)
+    path = str(tmp_path / "run.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(make_sid_runfile(tmp_path), mode="eval"), f)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-f", path, "--mode", "eval", "--nofig"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:1")
+    assert resolve_device("cpu") == torch.device("cpu")
