@@ -11,18 +11,24 @@ and no result line):
 1. the card's name and power limit; build every CUDA source of the port
    (one ``nvcc`` per source, all started together);
 2. every kernel against its plain PyTorch version on the card, at the test
-   shapes and at the full Sony frame, and run to run bit-identity;
+   shapes (both routes of the SSIM kernel wherever each applies) and at the
+   full Sony and IMX686 frames, run to run bit-identity, and a bright
+   low-variance frame against a float64 evaluation;
 3. the port's main path at full width: ``pnnp_tpu_torch.trainer.main
    --mode eval`` over a synthetic 2848x4256 SID fixture (2 scenes) with a
    seeded N(0, 0.02) nf=32 UNetSeeInDark checkpoint, the Sony values of
-   ``runfiles/SonyA7S2/ELD.yml``; the kernels' launch counts are read around
-   exactly that run, and one frame's SSIM is recomputed by the plain version;
+   ``runfiles/SonyA7S2/ELD.yml``; the kernels' launch counts (in all and by
+   route) are read around exactly that run, and one frame's SSIM is
+   recomputed by the plain version;
 4. timings with CUDA events after warm-up: the fused eval step in bf16 and
    in f32 at the full frame (median per call, plus a torch.profiler
-   breakdown by kernel and the device's idle share), and each kernel (mean
-   over back-to-back launches) against its bound and its plain version.
+   breakdown by kernel and the device's idle share), and each kernel route
+   (mean over back-to-back launches, the two routes in turns) at the Sony
+   and IMX686 frames against its bound and its plain version.
 
-Output: one ``timings`` JSON line, one ``kernels`` JSON line, the
+Output: one ``timings`` JSON line, one ``kernels`` JSON line (a row per
+SSIM route: ``ssim`` is the ``hopper`` route of the main path,
+``ssim_generic`` the first CUDA version), the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
@@ -47,8 +53,13 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TOL = 1e-4
+SONY, IMX686 = (1424, 2128, 4), (1736, 2312, 4)  # packed full frames [H, W, C]
+STRIP = 16  # the hopper route's shortest strip (csrc/ssim.cu MIN_STRIP)
 KERNEL_SHAPES = [(7, 7, 4), (70, 96, 4), (71, 96, 4), (96, 131, 3),
-                 (201, 140, 4), (1424, 2128, 4)]
+                 (201, 140, 4), SONY, IMX686,
+                 # strip edges, and widths one pixel into a warp's halo / the next warp
+                 (STRIP + 6, 121, 4), (STRIP + 7, 127, 4), (2 * STRIP + 5, 126, 4)]
+DRIFT = (1424, 256, 4)  # bright low-variance frame for the running-sum check
 MOSAIC_H, MOSAIC_W = 2848, 4256  # Sony A7S2 full frame, packed [1424, 2128, 4]
 SSIM_OPS_PER_WINDOW = 89  # 5 separable 7+7-tap sums (60) + the SSIM formula (29)
 
@@ -62,6 +73,33 @@ def _structured(shape, seed):
     x = np.clip(grad + chans + rng.uniform(0, 40, shape).astype(np.float32), 0, 255)
     y = np.clip(x + rng.normal(0, 12, shape).astype(np.float32), 0, 255)
     return x, y
+
+
+def _bright(shape, seed):
+    """200 + N(0, 0.5): large window sums, small variances."""
+    rng = np.random.default_rng(seed)
+    x = (200.0 + rng.normal(0, 0.5, shape)).astype(np.float32)
+    y = (x + rng.normal(0, 0.5, shape)).astype(np.float32)
+    return x, y
+
+
+def _ssim_f64(x, y, data_range=255.0):
+    """Mean SSIM of an [H, W, C] pair in float64 (uniform filter, valid crop)."""
+    from scipy.ndimage import uniform_filter
+
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    box = lambda a: uniform_filter(a, size=(7, 7, 1))[3:-3, 3:-3]
+    ux, uy = box(x), box(y)
+    cn = 49.0 / 48.0
+    vx, vy = cn * (box(x * x) - ux * ux), cn * (box(y * y) - uy * uy)
+    vxy = cn * (box(x * y) - ux * uy)
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    return float(np.mean((2 * ux * uy + c1) * (2 * vxy + c2)
+                         / ((ux * ux + uy * uy + c1) * (vx + vy + c2))))
+
+
+def _routes(C):
+    return ("hopper", "generic") if C == 4 else ("generic",)
 
 
 def _check(cond, what):
@@ -152,6 +190,16 @@ def _kernel_class(name):
     return "other"
 
 
+def _launcher(K, xf, yf, C, route):
+    """One launch of an SSIM route on scratch allocated once: back to back,
+    it times the kernel and not the wrapper's allocations."""
+    H, L = xf.shape
+    partials = torch.empty(K._library().pnnp_ssim_num_partials(H, L, C, K.ROUTES.index(route)),
+                           dtype=torch.float64, device=xf.device)
+    out = torch.empty((), dtype=torch.float64, device=xf.device)
+    return lambda: K._launch(xf, yf, C, 255.0, route, partials, out)
+
+
 def phase_build():
     from pnnp_tpu_torch.kernels import SOURCES, build_all
 
@@ -161,28 +209,43 @@ def phase_build():
           flush=True)
 
 
+def _to_dev(pair, dev):
+    H, W, C = pair[0].shape
+    return [torch.from_numpy(a.reshape(H, W * C)).to(dev) for a in pair]
+
+
 def phase_kernel_checks(dev):
+    """Each SSIM route against the plain version at every shape it takes;
+    returns the largest |kernel - plain| of the mean, by route."""
     import pnnp_tpu_torch.kernels.ssim as K
 
-    max_err = 0.0
+    max_err = dict.fromkeys(K.ROUTES, 0.0)
     for shape in KERNEL_SHAPES:
         H, W, C = shape
-        x, y = _structured(shape, 0)
-        xf = torch.from_numpy(x.reshape(H, W * C)).to(dev)
-        yf = torch.from_numpy(y.reshape(H, W * C)).to(dev)
+        xf, yf = _to_dev(_structured(shape, 0), dev)
         n = C * (H - 6) * (W - 6)
-        a = K.ssim_flat(xf, yf, C)
-        b = K.ssim_flat(xf, yf, C)
-        s = K.ssim_flat_sum(xf, yf, C)
-        torch.cuda.synchronize()
         ref = float(K.ssim_flat_plain(xf, yf, C))
+        errs = {}
+        for route in _routes(C):
+            a = K._ssim_call_sum(xf, yf, C, route=route)
+            b = K._ssim_call_sum(xf, yf, C, route=route)
+            torch.cuda.synchronize()
+            _check(torch.equal(a, b), f"ssim {route} {shape}: two launches differ")
+            errs[route] = abs(float(a) / n - ref)
+            max_err[route] = max(max_err[route], errs[route])
+            _check(errs[route] < TOL, f"ssim {route} {shape}: kernel {float(a) / n} "
+                                      f"vs plain {ref}")
+        if shape in (SONY, IMX686):
+            gap = abs(float(K._ssim_call_sum(xf, yf, C, route="hopper"))
+                      - float(K._ssim_call_sum(xf, yf, C, route="generic"))) / n
+            _check(gap < 1e-5, f"ssim routes differ by {gap} at {shape}")
+        # the entry points, on the default route
+        a = K.ssim_flat(xf, yf, C)
+        s = K.ssim_flat_sum(xf, yf, C)
         ref_sum = float(K.ssim_sum_plain(xf.reshape(H, W, C), yf.reshape(H, W, C)))
-        err = abs(float(a) - ref)
-        max_err = max(max_err, err)
-        _check(err < TOL, f"ssim_flat {shape}: kernel {float(a)} vs plain {ref}")
+        _check(abs(float(a) - ref) < TOL, f"ssim_flat {shape}: {float(a)} vs plain {ref}")
         _check(abs(float(s) - ref_sum) < TOL * n,
                f"ssim_flat_sum {shape}: kernel {float(s)} vs plain {ref_sum}")
-        _check(torch.equal(a, b), f"ssim_flat {shape}: two launches differ")
         if shape == (201, 140, 4):  # the banded and [H, W, C] entries
             band = lambda t: t.reshape(H, W, C).permute(2, 0, 1).reshape(C * H, W)
             _check(abs(float(K.ssim_banded(band(xf), band(yf), C)) - ref) < TOL,
@@ -190,7 +253,19 @@ def phase_kernel_checks(dev):
             _check(abs(float(K.ssim_kernel(xf.reshape(H, W, C),
                                            yf.reshape(H, W, C))) - ref) < TOL,
                    "ssim_kernel disagrees")
-        print(f"kernel check ssim {shape}: |kernel - plain| = {err:.3e}", flush=True)
+        print(f"kernel check ssim {shape}: |kernel - plain| = "
+              + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()), flush=True)
+
+    x, y = _bright(DRIFT, 0)
+    H, W, C = DRIFT
+    xf, yf = _to_dev((x, y), dev)
+    ref = _ssim_f64(x, y)
+    n = C * (H - 6) * (W - 6)
+    for route in _routes(C):
+        err = abs(float(K._ssim_call_sum(xf, yf, C, route=route)) / n - ref)
+        _check(err < TOL, f"ssim {route} drift frame {DRIFT}: {err} from float64")
+        print(f"kernel check ssim {route} bright frame {DRIFT}: |kernel - float64| = "
+              f"{err:.3e}", flush=True)
     return max_err
 
 
@@ -248,11 +323,12 @@ def phase_main_path(dev):
         try:
             torch.cuda.synchronize()
             K.launches = 0
+            K.launches_by_route = dict.fromkeys(K.ROUTES, 0)
             t0 = time.perf_counter()
             trainer = trainer_main(["-f", yml, "--mode", "eval", "--nofig"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"ssim": K.launches}
+            launches = {"ssim": K.launches, "by_route": dict(K.launches_by_route)}
         finally:
             os.chdir(cwd)
         print(f"main path: --mode eval over 2 full frames in {wall:.2f} s, "
@@ -265,6 +341,9 @@ def phase_main_path(dev):
         _check(all(math.isfinite(v) for pair in metrics.values() for v in pair),
                f"non-finite metrics {metrics}")
         _check(launches["ssim"] >= 2, f"SSIM kernel launched {launches['ssim']} times")
+        _check(launches["by_route"]["hopper"] == launches["ssim"]
+               and launches["by_route"]["generic"] == 0,
+               f"main-path SSIM launches by route {launches['by_route']}: not all hopper")
         _check(all(p.is_cuda for p in trainer.model.parameters()),
                "model parameters are not on the card")
         _check(trainer.model.conv1_1.weight.dtype == torch.bfloat16,
@@ -311,30 +390,48 @@ def phase_timings(dev):
         del net, step, call
     torch.cuda.empty_cache()
 
-    x, y = _structured((h, w, 4), 2)
-    xf = torch.from_numpy(x.reshape(h, w * 4)).to(dev)
-    yf = torch.from_numpy(y.reshape(h, w * 4)).to(dev)
-    kernel_ms = _loop_ms(lambda: K._ssim_call_sum(xf, yf, 4), warmup=5, iters=100)
-    plain_ms = _loop_ms(lambda: K.ssim_flat_plain(xf, yf, 4), warmup=2, iters=10)
-    hv, lv = h - 6, (w - 6) * 4
-    bytes_moved = 2 * xf.numel() * 4 + 8
-    ops = hv * lv * SSIM_OPS_PER_WINDOW + xf.numel() * 3
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
-    ssim_row = {
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    # each route at the two full frames, in turns (hopper, generic, generic,
+    # hopper), against its bound; the plain version at the Sony frame. The
+    # kernels are timed on scratch allocated once (see _launcher).
+    kernel_us, bounds = {}, {}
+    for frame, shape in (("sony", SONY), ("imx686", IMX686)):
+        H, W, C = shape
+        xf, yf = _to_dev(_structured(shape, 2), dev)
+        runs = {r: [] for r in K.ROUTES}
+        for route in ("hopper", "generic", "generic", "hopper"):
+            runs[route].append(1e3 * _loop_ms(_launcher(K, xf, yf, C, route),
+                                              warmup=5, iters=100))
+        kernel_us[frame] = {r: statistics.mean(v) for r, v in runs.items()}
+        kernel_us[frame]["runs"] = runs
+        # the same through the allocating wrapper, host overhead included
+        kernel_us[frame]["wrapper"] = {r: 1e3 * _loop_ms(
+            lambda: K._ssim_call_sum(xf, yf, C, route=r), warmup=5, iters=100)
+            for r in K.ROUTES}
+        bytes_moved = 2 * xf.numel() * 4 + 8
+        ops = (H - 6) * (W - 6) * C * SSIM_OPS_PER_WINDOW + xf.numel() * 3
+        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        bounds[frame] = {"bound_ms": max(t_bytes, t_ops), "bytes": bytes_moved, "ops": ops,
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if frame == "sony":
+            plain_ms = _loop_ms(lambda: K.ssim_flat_plain(xf, yf, C), warmup=2, iters=10)
+        print(f"ssim at {frame} {list(shape)}: us by route {kernel_us[frame]} "
+              f"(bound {bounds[frame]['bound_ms'] * 1e3:.1f} us)", flush=True)
+    sony = bounds["sony"]
+    rows = {route: {
+        "ms": kernel_us["sony"][route] / 1e3, "plain_ms": plain_ms,
+        "bound_ms": sony["bound_ms"], "bound_by": sony["bound_by"],
+        "bound_share": sony["bound_ms"] / (kernel_us["sony"][route] / 1e3),
         # no single PyTorch call computes SSIM
         "library_ms": None,
-    }
+    } for route in K.ROUTES}
     timings = {
         "frame": [1, h, w, 4], "mpix_per_frame": mpix,
         "eval_step_ms": step_ms,
         "eval_mpix_s": {k: mpix / (v / 1e3) for k, v in step_ms.items()},
-        "ssim_bytes": bytes_moved, "ssim_ops": ops,
+        "ssim_us_by_route": kernel_us, "ssim_bounds": bounds,
         "eval_step_profile": profiles,
     }
-    return ssim_row, timings
+    return rows, timings
 
 
 def main() -> int:
@@ -356,12 +453,14 @@ def main() -> int:
     phase_build()
     max_err = phase_kernel_checks(dev)
     launches, main_err = phase_main_path(dev)
-    ssim_row, timings = phase_timings(dev)
+    rows, timings = phase_timings(dev)
 
+    # one row per SSIM route: the main path's (hopper) and the first version
     kernels = [dict(
-        name="ssim", route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
-        replaces="pnnp_tpu/kernels/ssim.py:39", launches=launches["ssim"],
-        max_abs_err=max(max_err, main_err), **ssim_row)]
+        name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
+        replaces="pnnp_tpu/kernels/ssim.py:39", launches=launches["by_route"][route],
+        max_abs_err=max(max_err[route], main_err if route == "hopper" else 0.0),
+        **rows[route]) for name, route in (("ssim", "hopper"), ("ssim_generic", "generic"))]
     print(json.dumps({"timings": timings}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

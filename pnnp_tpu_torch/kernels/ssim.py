@@ -2,10 +2,16 @@
 
 Counterpart of ``pnnp_tpu/kernels/ssim.py``. The kernel
 (``pnnp_tpu_torch/csrc/ssim.cu``) reads a pair of channel-interleaved flat
-frames ``[H, W*C]`` once, forms the five moments and the separable 7x7 box
-in shared memory, evaluates the SSIM map and reduces it to one sum in a
-fixed order (bit-identical from run to run). It is built with ``nvcc`` at
-first use and bound through ``ctypes``.
+frames ``[H, W*C]`` once, forms the window moments and the separable 7x7 box,
+evaluates the SSIM map and reduces it to one sum in a fixed order
+(bit-identical from run to run). It is built with ``nvcc`` at first use and
+bound through ``ctypes``.
+
+Two routes compute the same function (:func:`_route` picks one from the
+shape and the data's alignment): ``hopper`` streams row strips through a shared-memory ring
+with coalesced 16-byte copies and keeps the window sums in registers, for
+C = 4 (the eval path's frames); ``generic`` stages halo tiles in shared
+memory, for any 1 <= C <= 16.
 
 Device rule for every entry point: a CPU tensor goes through the plain-torch
 version (:mod:`pnnp_tpu_torch.ops.metrics`); a CUDA tensor launches the
@@ -19,7 +25,8 @@ Entry points (all over the same launch, :func:`_ssim_call_sum`):
   * :func:`ssim_kernel`, :func:`ssim_fast`: ``[H, W, C]`` in (a free view of
     the flat layout);
   * :func:`ssim_banded` / :func:`_ssim_bands`: channel-banded ``[C*H, W]``
-    in, permuted to the flat layout in front of the kernel;
+    in, permuted to the flat layout in front of the kernel (and so on the
+    route of that flat shape);
   * :func:`packed_to_banded`: a layout change only.
 """
 
@@ -37,22 +44,26 @@ from pnnp_tpu_torch.ops.metrics import ssim_sum as ssim_sum_plain
 WIN = 7
 MAX_C = 16  # shared-memory tile width grows with C (csrc/ssim.cu smem_bytes)
 SOURCE = CSRC_DIR / "ssim.cu"
+ROUTES = ("generic", "hopper")  # the C interface's route numbers, in order
 
-# Kernel launches since import (or since a caller reset it to 0); counted at
-# the one launch site, _ssim_call_sum.
+# Kernel launches since import (or since a caller reset them to 0), in all
+# and by route; counted at the one launch site, _launch.
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (first use only), load and declare the C interface."""
     lib = load(SOURCE)
-    lib.pnnp_ssim_num_partials.argtypes = [ctypes.c_int] * 3
+    lib.pnnp_ssim_num_partials.argtypes = [ctypes.c_int] * 4
     lib.pnnp_ssim_num_partials.restype = ctypes.c_int
+    lib.pnnp_ssim_strip_rows.argtypes = [ctypes.c_int] * 2
+    lib.pnnp_ssim_strip_rows.restype = ctypes.c_int
     lib.pnnp_ssim_sum.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.pnnp_ssim_sum.restype = ctypes.c_int
     return lib
 
@@ -76,28 +87,60 @@ def _check(xf: torch.Tensor, yf: torch.Tensor, C: int) -> None:
         raise ValueError(f"frame {H}x{L // C} is smaller than the {WIN}x{WIN} window")
 
 
+def _route(H: int, L: int, C: int, *ptrs: int) -> str:
+    """The kernel route for an ``[H, L]`` frame of ``C`` channels whose
+    data start at ``ptrs``: ``hopper`` when one pixel is one 16-byte
+    ``float4`` (C = 4, L % 4 == 0, 16-byte aligned data), else ``generic``.
+    A pure function of the shape and the alignment; never of a failure."""
+    if C == 4 and L % 4 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "hopper"
+    return "generic"
+
+
 def _ssim_call_sum(xf: torch.Tensor, yf: torch.Tensor, C: int,
-                   data_range: float = 255.0) -> torch.Tensor:
+                   data_range: float = 255.0, route: str | None = None) -> torch.Tensor:
     """Launch the kernel: float64 0-d SUM of the SSIM map over the
     ``C * (H-6) * (W-6)`` valid windows of flat ``[H, W*C]`` CUDA inputs.
-    Runs on the current stream and does not synchronise."""
-    global launches
+    ``route`` defaults to :func:`_route`'s; tests and timings name one to
+    hold both against the plain version. Runs on the current stream and
+    does not synchronise."""
     _check(xf, yf, C)
     H, L = xf.shape
-    lib = _library()
+    fits = _route(H, L, C, xf.data_ptr(), yf.data_ptr())
+    route = route or fits
+    if route not in ROUTES or (route == "hopper" and fits != "hopper"):
+        raise ValueError(f"SSIM route {route!r} does not take a [{H}, {L}] frame "
+                         f"of C={C} (routes {ROUTES})")
+    partials = torch.empty(_library().pnnp_ssim_num_partials(H, L, C, ROUTES.index(route)),
+                           dtype=torch.float64, device=xf.device)
+    out = torch.empty((), dtype=torch.float64, device=xf.device)
+    _launch(xf, yf, C, data_range, route, partials, out)
+    return out
+
+
+def _launch(xf: torch.Tensor, yf: torch.Tensor, C: int, data_range: float,
+            route: str, partials: torch.Tensor, out: torch.Tensor) -> None:
+    """The one launch site: inputs checked by :func:`_ssim_call_sum`, scratch
+    ``partials`` (float64, ``pnnp_ssim_num_partials`` long) and the float64
+    ``out`` on the inputs' device. Counts the launch."""
+    global launches
+    H, L = xf.shape
     with torch.cuda.device(xf.device):
-        partials = torch.empty(lib.pnnp_ssim_num_partials(H, L, C),
-                               dtype=torch.float64, device=xf.device)
-        out = torch.empty((), dtype=torch.float64, device=xf.device)
-        err = lib.pnnp_ssim_sum(
+        err = _library().pnnp_ssim_sum(
             xf.data_ptr(), yf.data_ptr(), H, L, C,
-            (0.01 * data_range) ** 2, (0.03 * data_range) ** 2,
+            (0.01 * data_range) ** 2, (0.03 * data_range) ** 2, ROUTES.index(route),
             partials.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(xf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"SSIM kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
+    launches_by_route[route] += 1
+
+
+def _hopper_strip_rows(H: int, L: int) -> int:
+    """Output rows per strip of the ``hopper`` route for an ``[H, L]`` frame
+    (the kernel's own grid rule; needs the built library)."""
+    return _library().pnnp_ssim_strip_rows(H, L)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

@@ -18,6 +18,7 @@ import pnnp_tpu_torch.kernels.ssim as tssim
 from pnnp_tpu.ops.metrics import ssim as jax_ssim
 from pnnp_tpu.ops.metrics import ssim_sum as jax_ssim_sum
 from pnnp_tpu_torch.ops.metrics import ssim as torch_ssim
+from tests.test_torch_cuda_kernels import DRIFT, bright, ssim_f64
 from tests.test_torch_cuda_kernels import structured as _structured
 
 SHAPES = [(70, 96, 4), (96, 131, 3), (201, 140, 4), (71, 96, 4)]
@@ -91,6 +92,42 @@ def test_kernel_launch_refuses_cpu_tensors():
     x = torch.zeros(16, 64)
     with pytest.raises(ValueError, match="CUDA"):
         tssim._ssim_call_sum(x, x, 4)
+
+
+@pytest.mark.parametrize("case,shape,route", [
+    ("sony frame", (1424, 8512, 4), "hopper"),
+    ("imx686 frame", (1736, 9248, 4), "hopper"),
+    ("narrow C=4", (7, 28, 4), "hopper"),
+    ("C=3", (96, 393, 3), "generic"),
+    ("C=4, ragged L", (70, 386, 4), "generic"),
+    ("C=1", (70, 96, 1), "generic"),
+    # the channel-banded layout [C*H, W] as the TPU kernel reads it: one
+    # channel per band, a lane stride of 1 (the port permutes it to the flat
+    # layout first, which then takes the route of its own shape)
+    ("banded [4*201, 140]", (4 * 201, 140, 1), "generic"),
+])
+def test_route_is_hopper_for_the_main_path_case_only(case, shape, route):
+    assert tssim._route(*shape) == route, case
+    assert tssim._route(*shape, 256, 4096) == route, case  # aligned data
+
+
+@pytest.mark.parametrize("offset", [4, 8, 12])
+def test_route_needs_16_byte_aligned_data(offset):
+    assert tssim._route(1424, 8512, 4, 256, 256 + offset) == "generic"
+    assert tssim._route(1424, 8512, 4, 256 + offset) == "generic"
+
+
+def test_plain_ssim_drift_frame_is_within_tolerance_of_float64():
+    """The CUDA tests hold both kernel routes within 1e-4 of a float64
+    evaluation on a tall bright low-variance frame. The plain f32 version
+    itself lands far inside that (a few 1e-7 here), so the tolerance leaves
+    room for the kernels' own f32 rounding but not for drifting sums."""
+    x, y = bright(DRIFT, 0)
+    H, W, C = DRIFT
+    ref = ssim_f64(x, y)
+    got = float(tssim.ssim_flat(torch.from_numpy(x.reshape(H, W * C)),
+                                torch.from_numpy(y.reshape(H, W * C)), C))
+    assert abs(got - ref) < TOL / 10, (got, ref)
 
 
 def test_packed_to_banded_layout_contract():
