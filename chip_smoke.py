@@ -20,16 +20,33 @@ and no result line):
    ``runfiles/SonyA7S2/ELD.yml``; the kernels' launch counts (in all and by
    route) are read around exactly that run, and one frame's SSIM is
    recomputed by the plain version;
-4. timings with CUDA events after warm-up: the fused eval step in bf16 and
+4. the training half of the main path: ``pnnp_tpu_torch.trainer.main
+   --mode train`` on a 4-scene 2848x4256 fixture with the Sony values of
+   ``runfiles/SonyA7S2/ELD.yml`` (``Raw_Dataset``, ``pgrq``, nf=32, 8 crops
+   of 512x512 per step, ``T: 3``), cut to 2 epochs (8 steps) at a fixed lr
+   of 2e-4, an eval leg every epoch over the 4 scenes placed in the
+   ``SID_Dataset`` 250 split, then the ``evaltest`` sweep. Asserted: 8
+   finite steps and no aborted epoch, params moved, f32 master params on
+   the card with bf16 convolutions, ``last``/``best`` load back, 4 frames
+   per eval leg, ``best`` written at epoch 1 and reloaded at the period
+   boundary, and 12 SSIM launches, all ``hopper``; then one f32 step at
+   nf=4 on 8x32^2 on the card against the same step on the CPU, and the
+   bf16 step's gradients against the f32 ones on the card;
+5. timings with CUDA events after warm-up: the fused eval step in bf16 and
    in f32 at the full frame (median per call, plus a torch.profiler
-   breakdown by kernel and the device's idle share), and each kernel route
+   breakdown by kernel and the device's idle share), each kernel route
    (mean over back-to-back launches, the two routes in turns) at the Sony
-   and IMX686 frames against its bound and its plain version.
+   and IMX686 frames against its bound and its plain version, and the
+   train step at 8x512^2 ``pgrq`` in bf16 and f32 (median of 10 after 3
+   warm-ups, the split synth / forward + backward / Adam, a profiler
+   breakdown with the idle share, the FLOP bound) and the host loader's
+   time per batch (one full frame -> 8 crops): on one thread, and at the
+   runfile's 4 workers over 32 batches, alone and feeding the train step.
 
 Output: one ``timings`` JSON line, one ``kernels`` JSON line (a row per
 SSIM route: ``ssim`` is the ``hopper`` route of the main path,
-``ssim_generic`` the first CUDA version), the
-``nvidia-smi`` name/power-limit line, and last
+``ssim_generic`` the first CUDA version; ``launches`` sums the eval and the
+train runs, ``launches_by_path`` keeps each), the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
 
@@ -38,6 +55,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import pickle
 import statistics
 import subprocess
@@ -52,6 +70,7 @@ import torch
 # the tensor cores. The SSIM kernel's work is fp32 CUDA-core arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense, tensor cores
 TOL = 1e-4
 SONY, IMX686 = (1424, 2128, 4), (1736, 2312, 4)  # packed full frames [H, W, C]
 STRIP = 16  # the hopper route's shortest strip (csrc/ssim.cu MIN_STRIP)
@@ -62,6 +81,9 @@ KERNEL_SHAPES = [(7, 7, 4), (70, 96, 4), (71, 96, 4), (96, 131, 3),
 DRIFT = (1424, 256, 4)  # bright low-variance frame for the running-sum check
 MOSAIC_H, MOSAIC_W = 2848, 4256  # Sony A7S2 full frame, packed [1424, 2128, 4]
 SSIM_OPS_PER_WINDOW = 89  # 5 separable 7+7-tap sums (60) + the SSIM formula (29)
+TRAIN_SCENES, TRAIN_EPOCHS = 4, 2  # batch_size 1: one frame (8 crops) per step
+TRAIN_LR = 2e-4  # ELD.yml's learning_rate, held fixed (WarmupCosine is 0 here)
+CROPS, PATCH = 8, 512
 
 
 def _structured(shape, seed):
@@ -144,17 +166,23 @@ def _loop_ms(fn, warmup, iters):
 def _profile(fn, step_ms, steps=3):
     """Device time by kernel, by class of kernel and by the op that launched
     it, over ``steps`` calls (torch.profiler), per call; and the device's
-    idle share against the event-timed call time."""
+    idle share over the profiled window itself (CUDA events around it),
+    beside the event-timed call time ``step_ms`` of an unprofiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
+        start.record()
         for _ in range(steps):
             fn()
+        end.record()
         torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end) / steps
     rows, ops, by_class = [], [], {}
     for e in prof.key_averages():
         if e.self_device_time_total <= 0:
@@ -171,9 +199,10 @@ def _profile(fn, step_ms, steps=3):
     rows.sort(key=lambda r: -r[1])
     ops.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return {"device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms,
-            "by_class_ms": by_class, "top_kernels_ms": rows[:10],
-            "top_ops_ms": ops[:8]}
+    return {"device_busy_ms": busy, "profiled_window_ms": window_ms,
+            "idle_share": 1.0 - busy / window_ms, "step_ms": step_ms,
+            "by_class_ms": by_class, "top_kernels_ms": rows[:12],
+            "top_ops_ms": ops[:10]}
 
 
 def _kernel_class(name):
@@ -181,8 +210,17 @@ def _kernel_class(name):
     low = name.lower()
     if "ssim" in low:
         return "ssim kernel"
-    if any(k in low for k in ("xmma", "cutlass", "cudnn", "conv", "gemm")):
-        return "cudnn convolution and its layout transforms"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "cudnn layout transforms"
+    if any(k in low for k in ("xmma", "cutlass", "cudnn", "conv", "gemm", "fft",
+                              "grad_alg", "pointwise_mult_and_sum_complex")):
+        return "cudnn convolution"
+    if "poisson" in low:
+        return "poisson sampler"
+    if any(k in low for k in ("distribution", "philox", "normal_kernel", "uniform_kernel")):
+        return "random draws"
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "adam (foreach)"
     for key, cls in (("catarray", "concat"), ("max_pool", "max pool"),
                      ("reduce", "reductions"), ("elementwise", "elementwise")):
         if key in low:
@@ -367,6 +405,320 @@ def phase_main_path(dev):
     return launches, err
 
 
+def _train_runfile(root):
+    run = _smoke_runfile(root)
+    eld_train = dict(run["dst"], mode="train")
+    # the 4 scenes sit in the SID 250 split (place_eval_split), the split an
+    # eval leg of train() serves
+    run["dst_eval"]["ratio_list"] = [250]
+    run.update(mode="train", dst_train=eld_train, num_workers=4)
+    run["hyper"].update(stop_epoch=TRAIN_EPOCHS, plot_freq=1, lr_scheduler="fixed",
+                        learning_rate=TRAIN_LR, batch_size=1)
+    return run
+
+
+def phase_train_main_path(dev):
+    """--mode train through the CLI entry; returns the SSIM launches of the
+    run, what was checked, one host batch on the card and the loader's
+    host time per batch."""
+    import yaml
+
+    import pnnp_tpu_torch.kernels.ssim as K
+    import pnnp_tpu_torch.trainer as T
+    from pnnp_tpu_torch.data import collate
+    from pnnp_tpu_torch.data.fixtures import make_sid_fixture, place_eval_split
+    from pnnp_tpu_torch.models import build_model, params_from_jax, params_to_jax
+    from pnnp_tpu_torch.train import TrainStep, load_any
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="pnnp_train_") as root:
+        t0 = time.perf_counter()
+        infos = make_sid_fixture(root, n_scenes=TRAIN_SCENES, H=MOSAIC_H, W=MOSAIC_W)
+        place_eval_split(root, infos, 250)
+        run = _train_runfile(root)
+        yml = os.path.join(root, "run.yml")
+        with open(yml, "w") as f:
+            yaml.safe_dump(run, f)
+        print(f"train path: fixture in {time.perf_counter() - t0:.1f} s "
+              f"({TRAIN_SCENES} scenes, {MOSAIC_H}x{MOSAIC_W})", flush=True)
+
+        # observed, not configured: the loss and entry time of every step,
+        # the frames each eval leg served, the trainer's log lines, and the
+        # dtype of every convolution output computed with autograd on (the
+        # train forwards; the eval legs run under no_grad)
+        losses, step_at, legs, lines, conv_dtypes = [], [], [], [], set()
+        call, evaluate, log = TrainStep.__call__, T.Trainer.eval, T.log
+
+        def counted(self, model, opt, batch, gen, epoch):
+            step_at.append((epoch, time.perf_counter()))
+            m = call(self, model, opt, batch, gen, epoch)
+            losses.append(float(m["loss"]))
+            return m
+
+        def eval_leg(self, epoch=-1):
+            evaluate(self, epoch)
+            legs.append((self.eval_psnr.count, epoch))
+
+        def logged(string, *a, **k):
+            lines.append(str(string))
+            return log(string, *a, **k)
+
+        def conv_hook(module, inputs, output):
+            if torch.is_grad_enabled() and isinstance(
+                    module, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                conv_dtypes.add(str(output.dtype).replace("torch.", ""))
+
+        os.chdir(root)
+        TrainStep.__call__, T.Trainer.eval, T.log = counted, eval_leg, logged
+        hook = torch.nn.modules.module.register_module_forward_hook(conv_hook)
+        try:
+            torch.cuda.synchronize()
+            K.launches = 0
+            K.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+            t0 = time.perf_counter()
+            trainer = T.main(["-f", yml, "--mode", "train", "--nofig"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"ssim": K.launches, "by_route": dict(K.launches_by_route)}
+        finally:
+            hook.remove()
+            TrainStep.__call__, T.Trainer.eval, T.log = call, evaluate, log
+            os.chdir(cwd)
+        out = "\n".join(lines)
+
+        steps = TRAIN_SCENES * TRAIN_EPOCHS
+        _check("aborted by RuntimeError" not in out, "an epoch was aborted")
+        _check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+               f"train steps: {len(losses)} of {steps}, losses {losses}")
+        epochs = re.findall(r"^Epoch (\d+): loss ok, train_psnr=(\S+), lr=(\S+), "
+                            r"time=\S+s \[loader \d+% net \d+%\]$", out, re.M)
+        _check([int(e) for e, _, _ in epochs] == list(range(1, TRAIN_EPOCHS + 1))
+               and all(math.isfinite(float(p)) and float(lr) > 0 for _, p, lr in epochs),
+               f"epoch lines {epochs}")
+        _check(conv_dtypes == {"bfloat16"}, f"train convolutions ran in {conv_dtypes}")
+        _check(all(p.is_cuda and p.dtype == torch.float32
+                   for p in trainer.model.parameters()), "master params not f32 on the card")
+        want = [(TRAIN_SCENES, e) for e in range(1, TRAIN_EPOCHS + 1)] + [(TRAIN_SCENES, -1)]
+        _check(legs == want, f"eval legs (frames, epoch) {legs}, want {want}")
+        e1 = out[out.index("Epoch 1: loss ok"):out.index("Epoch 2: loss ok")]
+        _check("Best PSNR is" in e1 and "Period boundary: reloaded best checkpoint" in e1,
+               "best not written at epoch 1 or not reloaded at the period boundary")
+        frames = sum(n for n, _ in legs)
+        _check(launches["ssim"] == frames == launches["by_route"]["hopper"],
+               f"SSIM launches {launches} for {frames} eval frames")
+        with open(os.path.join(root, "metrics", f"{run['model_name']}_metrics.pkl"),
+                  "rb") as f:
+            metrics = pickle.load(f)
+        _check(len(metrics) == TRAIN_SCENES
+               and all(math.isfinite(v) for pair in metrics.values() for v in pair),
+               f"metrics pkl {metrics}")
+
+        init = build_model(run["arch"], dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(trainer.seed))
+        init = params_to_jax(init.state_dict())
+        moved = {}
+        for name in ("last", "best"):
+            ckpt = load_any(os.path.join(run["fast_ckpt"],
+                                         f"{run['model_name']}_{name}_model.ckpt"))
+            net = build_model(run["arch"], dtype=torch.float32)
+            net.load_state_dict(params_from_jax(ckpt["params"]), strict=True)
+            moved[name] = max(float(np.abs(ckpt["params"][n][k] - init[n][k]).max())
+                              for n in init for k in init[n])
+            _check(moved[name] > 0.1 * TRAIN_LR, f"{name} params did not move: {moved}")
+        print(f"train path: --mode train, {steps} steps + {frames} eval frames in "
+              f"{wall:.2f} s; losses {[round(x, 5) for x in losses]}; eval legs {legs}; "
+              f"launches {launches}; params moved by up to {moved}", flush=True)
+
+        # wall ms from one step's entry to the next inside an epoch: the
+        # step, its one sync and the wait for the next batch
+        step_wall = [1e3 * (b - a) for (e, a), (f, b) in zip(step_at, step_at[1:]) if e == f]
+
+        # the host loader: one thread, one full frame -> 8 crops of 512^2 per
+        # batch; then at the runfile's worker count, alone and feeding the step
+        ds = trainer.dataset_train
+        loader_ms = []
+        for i in range(TRAIN_SCENES + 1):
+            t0 = time.perf_counter()
+            host = collate([ds[i % len(ds)]])
+            loader_ms.append(1e3 * (time.perf_counter() - t0))
+        pace = _loader_pace(trainer)
+        loader_split = _loader_split(ds)
+        batch = trainer._train_batch(host)
+        del trainer
+    result = {"wall_s": wall, "steps": steps, "losses": losses, "eval_legs": legs,
+              "params_moved": moved, "conv_dtypes": sorted(conv_dtypes),
+              "launches": launches, "epoch_lines": [e for e in lines if ": loss ok," in e],
+              "step_wall_ms": step_wall,
+              "loader_ms_per_batch": {"one_thread": {
+                  "first": loader_ms[0], "median_rest": statistics.median(loader_ms[1:]),
+                  "all": loader_ms, "split_ms": loader_split}, **pace}}
+    return launches, result, batch
+
+
+class _Repeat:
+    """The train set ``k`` times over: one long epoch for the loader loops."""
+
+    def __init__(self, ds, k):
+        self.ds, self.k = ds, k
+
+    def __len__(self):
+        return self.k * len(self.ds)
+
+    def __getitem__(self, i):
+        return self.ds[i % len(self.ds)]
+
+    def reseed_worker(self, *args):
+        self.ds.reseed_worker(*args)
+
+
+def _loader_pace(trainer, reps=8, warmup=4):
+    """The trainer's DataLoader at its runfile's worker count over ``reps``
+    passes of the train set in one epoch: host ms between batches when
+    nothing consumes them, and wall ms per step when they feed the trainer's
+    own step as ``train()`` does (to the device, the step, one sync). Both
+    after ``warmup`` batches, whose prefetch the workers fill at once."""
+    from pnnp_tpu_torch.data import DataLoader
+
+    workers = int(trainer.args.get("num_workers", 2))
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+
+    def step(host):
+        m = trainer.train_step(trainer.model, trainer.opt, trainer._train_batch(host), gen, 1)
+        float(m["psnr"])
+
+    out = {"workers": workers}
+    for name, consume in (("alone", lambda host: None), ("feeding_step", step)):
+        loader = DataLoader(_Repeat(trainer.dataset_train, reps), batch_size=1,
+                            num_workers=workers, seed=trainer.seed)
+        stamps = []
+        for host in loader:
+            consume(host)
+            stamps.append(time.perf_counter())
+        gaps = [1e3 * (b - a) for a, b in zip(stamps[warmup:], stamps[warmup + 1:])]
+        out[name] = {"median_ms": statistics.median(gaps), "mean_ms": statistics.mean(gaps),
+                     "n": len(gaps)}
+    print(f"host loader, {workers} workers: {out}", flush=True)
+    return out
+
+
+def _loader_split(ds, frames=TRAIN_SCENES):
+    """Median host ms of each stage of one train example (one thread): npy
+    read, native pack to [1424, 2128, 4], the 8 crops (with flips / rot90)."""
+    from pnnp_tpu_torch.data.io import dataload
+
+    parts = {"read": [], "pack": [], "crop": []}
+    for i in range(frames):
+        t0 = time.perf_counter()
+        raw = np.asarray(dataload(ds.infos[i]["long"])).reshape(ds.H, ds.W)
+        t1 = time.perf_counter()
+        packed = ds.pack(raw, clip=True)
+        t2 = time.perf_counter()
+        ds.make_planner().crop(packed)
+        t3 = time.perf_counter()
+        for k, a, b in zip(parts, (t0, t1, t2), (t1, t2, t3)):
+            parts[k].append(1e3 * (b - a))
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def phase_train_step_check(dev):
+    """One f32 step at nf=4 on 8x32^2: the same weights and batch on the card
+    and on the CPU. Loss within 1e-5 relative, each gradient within 1e-4 of
+    its largest magnitude. Then the bf16 step's gradients on the card
+    against the card's f32 ones: each within 5e-2 of its largest magnitude
+    (bf16 rounding reads 1.4e-2 on the CPU here; a zero gradient reads 1)."""
+    from pnnp_tpu_torch.models import UNetSeeInDark
+    from pnnp_tpu_torch.train import identity_synth, make_train_step
+
+    rng = np.random.default_rng(0)
+    hr = rng.uniform(0, 0.5, (CROPS, 4, 32, 32)).astype(np.float32)
+    lr = (hr + rng.normal(0, 0.05, hr.shape)).astype(np.float32)
+    res = {}
+    for d, bf16 in ((dev, False), (torch.device("cpu"), False), (dev, True)):
+        step = make_train_step(lambda e: TRAIN_LR, identity_synth, clip_mode=2, bf16=bf16)
+        net = UNetSeeInDark(nf=4, generator=torch.Generator().manual_seed(1)).to(d)
+        loss, _ = step.forward_backward(net, torch.from_numpy(lr).to(d),
+                                        torch.from_numpy(hr).to(d))
+        res[d.type, bf16] = (float(loss), {n: p.grad.cpu() for n, p in net.named_parameters()})
+    (lc, gc), (lh, gh), (l16, g16) = res["cuda", False], res["cpu", False], res["cuda", True]
+    rel = lambda a, b: max(float((a[n] - g).abs().max() / g.abs().max()) for n, g in b.items())
+    loss_rel, grad_rel, bf16_rel = abs(lc - lh) / abs(lh), rel(gc, gh), rel(g16, gc)
+    _check(loss_rel <= 1e-5, f"f32 step loss card {lc} vs cpu {lh}")
+    _check(grad_rel <= 1e-4, f"f32 step gradients differ by {grad_rel} of their max")
+    _check(abs(l16 - lc) < 2e-3, f"bf16 step loss {l16} vs f32 {lc}")
+    _check(bf16_rel < 5e-2, f"bf16 step gradients differ by {bf16_rel} of their max")
+    print(f"train step check: f32 nf=4 8x32^2 card vs cpu: loss rel {loss_rel:.2e}, "
+          f"grad rel {grad_rel:.2e}; bf16 vs f32 on the card: loss {abs(l16 - lc):.2e}, "
+          f"grad rel {bf16_rel:.2e}", flush=True)
+    return {"loss_rel": loss_rel, "grad_rel_of_max": grad_rel,
+            "bf16_loss_abs": abs(l16 - lc), "bf16_grad_rel_of_max": bf16_rel}
+
+
+def _unet_flops_per_pixel(nf, in_nc=4, out_nc=4):
+    """Forward multiply-adds x 2 of UNetSeeInDark per full-resolution pixel:
+    two 3x3 convs per level (level k at 1/4^k of the pixels), a 2x2
+    stride-2 transposed conv and two 3x3 convs per decoder level, a 1x1
+    head."""
+    conv = lambda ci, co, k=3: 2 * k * k * ci * co
+    chans = [nf * 2**k for k in range(5)]
+    enc = conv(in_nc, nf) + conv(nf, nf) + sum(
+        (conv(chans[k - 1], chans[k]) + conv(chans[k], chans[k])) / 4**k for k in range(1, 5))
+    dec = sum((2 * chans[k + 1] * chans[k] + conv(2 * chans[k], chans[k])
+               + conv(chans[k], chans[k])) / 4**k for k in range(4))
+    return enc + dec + conv(nf, out_nc, 1)
+
+
+def _split_ms(step, model, opt, batch, gen, warmup=3, iters=10):
+    """Median CUDA-event time of each stage of the step: synth (+ clip),
+    forward + loss + backward, and the Adam update."""
+    parts = {"synth": [], "forward_backward": [], "adam": []}
+    for i in range(warmup + iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        lr_img, hr_img = step.make_pair(batch, gen)
+        ev[1].record()
+        step.forward_backward(model, lr_img, hr_img)
+        ev[2].record()
+        step.update(opt, 1)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            for k, a, b in zip(parts, ev, ev[1:]):
+                parts[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def phase_train_timings(dev, batch):
+    """The train step at 8x512^2 pgrq, nf=32, on the main path's own batch."""
+    from pnnp_tpu_torch.models import UNetSeeInDark
+    from pnnp_tpu_torch.train import make_adam, make_raw_synth, make_train_step
+
+    step_ms, split, profiles, bound = {}, {}, {}, {}
+    n, _, h, w = batch["hr"].shape
+    flops = 3 * _unet_flops_per_pixel(32) * n * h * w  # forward + backward (2x forward)
+    for name, bf16 in (("bfloat16", True), ("float32", False)):
+        net = UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(0)).to(dev)
+        opt = make_adam(net.parameters())
+        step = make_train_step(lambda e: TRAIN_LR,
+                               make_raw_synth("SonyA7S2", "pgrq", ori=False, clip=True),
+                               clip_mode=True, bf16=bf16)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        call = lambda: step(net, opt, batch, gen, 1)
+        step_ms[name] = _time_ms(call, warmup=3, iters=10)
+        split[name] = _split_ms(step, net, opt, batch, gen)
+        profiles[name] = _profile(call, step_ms[name])
+        bound[name] = flops / (BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S) * 1e3
+        print(f"train step {name}: {step_ms[name]:.3f} ms (split {split[name]}, "
+              f"bound {bound[name]:.3f} ms)", flush=True)
+        del net, opt, step, call
+        torch.cuda.empty_cache()
+    return {"batch": list(batch["hr"].shape), "noise_code": "pgrq", "nf": 32,
+            "train_step_ms": step_ms, "train_step_split_ms": split,
+            "synth_share": {k: split[k]["synth"] / step_ms[k] for k in step_ms},
+            "train_flops_per_step": flops, "train_bound_ms": bound,
+            "train_bound_share": {k: bound[k] / step_ms[k] for k in step_ms},
+            "train_step_profile": profiles}
+
+
 def phase_timings(dev):
     import pnnp_tpu_torch.kernels.ssim as K
     from pnnp_tpu_torch.models import UNetSeeInDark
@@ -453,12 +805,21 @@ def main() -> int:
     phase_build()
     max_err = phase_kernel_checks(dev)
     launches, main_err = phase_main_path(dev)
+    train_launches, train_run, batch = phase_train_main_path(dev)
+    step_check = phase_train_step_check(dev)
     rows, timings = phase_timings(dev)
+    timings.update(phase_train_timings(dev, batch))
+    timings.update(train_main_path=train_run, train_step_check=step_check)
 
-    # one row per SSIM route: the main path's (hopper) and the first version
+    # one row per SSIM route: the main path's (hopper) and the first version;
+    # launches of each path's run (the eval run, the train run's eval legs)
+    # and their sum
+    by_path = {"eval": launches, "train": train_launches}
     kernels = [dict(
         name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
-        replaces="pnnp_tpu/kernels/ssim.py:39", launches=launches["by_route"][route],
+        replaces="pnnp_tpu/kernels/ssim.py:39",
+        launches=sum(p["by_route"][route] for p in by_path.values()),
+        launches_by_path={k: p["by_route"][route] for k, p in by_path.items()},
         max_abs_err=max(max_err[route], main_err if route == "hopper" else 0.0),
         **rows[route]) for name, route in (("ssim", "hopper"), ("ssim_generic", "generic"))]
     print(json.dumps({"timings": timings}))

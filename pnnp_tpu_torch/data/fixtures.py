@@ -42,6 +42,21 @@ def make_sid_fixture(root, n_scenes: int = 3, H: int = 32, W: int = 48):
     return infos
 
 
+def place_eval_split(root, infos, ratio: int = 250):
+    """Rewrite ``SID_eval.info`` so that the eval split of ``ratio`` holds
+    the fixture's scenes.
+
+    ``SIDDataset`` serves ``infos[40:80]`` at its default ratio 250 (and
+    ``[:40]`` / ``[80:]`` at 100 / 300), so a fixture of fewer than 41
+    scenes leaves that split empty. The scenes go first in the split; the
+    entries before it repeat them."""
+    start = {100: 0, 250: 40, 300: 80}[int(ratio)]
+    entries = [infos[i % len(infos)] for i in range(start)] + list(infos)
+    with open(os.path.join(str(root), "infos", "SID_eval.info"), "wb") as f:
+        pickle.dump([dict(e, short=list(e["short"]), ratio=list(e["ratio"]))
+                     for e in entries], f)
+
+
 def make_sid_runfile(root, model_name: str = "DRYRUN_Unet", *, nf: int = 4,
                      patch_size: int = 8, H: int = 32, W: int = 48,
                      batch_size: int = 8, stop_epoch: int = 1,

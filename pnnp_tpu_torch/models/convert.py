@@ -141,6 +141,7 @@ def params_from_jax(params: Mapping[str, Any]) -> dict:
 
 def params_to_jax(state_dict: Mapping[str, Any]) -> dict:
     """Inverse of :func:`params_from_jax`: a module's ``state_dict`` -> JAX
-    parameter tree of float32 numpy arrays (the pickle checkpoint layout)."""
+    parameter tree of float32 numpy arrays (the pickle checkpoint layout),
+    copied: later updates of the module do not show through."""
     return torch_state_to_flax(
-        {k: v.detach().float().cpu() for k, v in state_dict.items()})
+        {k: v.detach().float().cpu().clone() for k, v in state_dict.items()})

@@ -1,16 +1,24 @@
 """Camera noise calibration tables (physical constants, stored as arrays).
 
-Copy of the tables the datasets and the eval path read from
-``pnnp_tpu/physics/calibration.py``: the published per-ISO point
-calibrations (reference: data_process/process.py:215-308), ``HALF_CLIP``,
-the proxy's legal ISO ladder and :func:`iso_index`. The regression models
-and the user noiseparam loaders arrive with the physics synth (ROADMAP 1.3).
+Numpy copy of ``pnnp_tpu/physics/calibration.py``: the published sensor
+calibrations (reference: data_process/process.py:215-308) as dense arrays.
+
+Two families:
+  * log-linear regression models per camera/"conversion-gain mode"
+    (``CAMERA_REGRESSION``): log-sigma as linear fits of log-K;
+  * per-ISO point calibrations (``ISO_TABLES``): SonyA7S2 has 28 calibrated
+    ISOs, IMX686 has 2.
+
+Plus ``HALF_CLIP``, the proxy's legal ISO ladder, :func:`iso_index` and the
+user noiseparam loaders (:func:`load_noiseparam_h5`,
+:func:`table_with_noiseparam`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+DUAL_ISO_CAMERAS = ("SonyA7S2",)
 HALF_CLIP = 2  # reference: data_process/process.py:19
 
 # NoiseFlow / proxy "legal ISO" ladder (reference: archs/flow_layers/gain.py:69-70).
@@ -20,6 +28,43 @@ LEGAL_ISO = np.array(
      32000, 40000, 51200],
     np.float32,
 )
+
+CAMERA_REGRESSION = {
+    "NikonD850": dict(
+        Kmin=1.2, Kmax=2.4828, lam=-0.26, q=1 / 2**14, wp=16383, bl=512,
+        sigTLk=0.906, sigTLb=-0.6754, sigTLsig=0.035165,
+        sigRk=0.8322, sigRb=-2.3326, sigRsig=0.301333,
+        sigGsk=0.8322, sigGsb=-0.1754, sigGssig=0.035165,
+    ),
+    "IMX686": dict(  # ISO-640~6400
+        Kmin=-0.19118, Kmax=2.16820, lam=0.102, q=1 / 2**10, wp=1023, bl=64,
+        sigTLk=0.85187, sigTLb=0.07991, sigTLsig=0.02921,
+        sigRk=0.87611, sigRb=-2.11455, sigRsig=0.03274,
+        sigGsk=0.85187, sigGsb=0.67991, sigGssig=0.02921,
+    ),
+    "SonyA7S2_lowISO": dict(
+        Kmin=-1.67214, Kmax=0.42228, lam=-0.026, q=1 / 2**14, wp=16383, bl=512,
+        sigRk=0.78782, sigRb=-0.34227, sigRsig=0.02832,
+        sigTLk=0.74043, sigTLb=0.86182, sigTLsig=0.00712,
+        sigGsk=0.82966, sigGsb=1.49343, sigGssig=0.00359,
+        sigReadk=0.82879, sigReadb=1.50601, sigReadsig=0.00362,
+        uReadk=0.01472, uReadb=0.01129, uReadsig=0.00034,
+    ),
+    "SonyA7S2_highISO": dict(
+        Kmin=0.64567, Kmax=2.51606, lam=-0.025, q=1 / 2**14, wp=16383, bl=512,
+        sigRk=0.62945, sigRb=-1.51040, sigRsig=0.02609,
+        sigTLk=0.74901, sigTLb=-0.12348, sigTLsig=0.00638,
+        sigGsk=0.82878, sigGsb=0.44162, sigGssig=0.00153,
+        sigReadk=0.82645, sigReadb=0.45061, sigReadsig=0.00156,
+        uReadk=0.00385, uReadb=0.00674, uReadsig=0.00039,
+    ),
+    "CRVD": dict(
+        Kmin=1.31339, Kmax=3.95448, lam=0.015, q=1 / 2**12, wp=4095, bl=240,
+        sigRk=0.93368, sigRb=-2.19692, sigRsig=0.02473,
+        sigGsk=0.95387, sigGsb=0.01552, sigGssig=0.00855,
+        sigTLk=0.95495, sigTLb=0.01618, sigTLsig=0.00790,
+    ),
+}
 
 # SonyA7S2 per-ISO calibration (reference: data_process/process.py:260-289).
 # Columns: iso, Kmax, lam, sigGs, sigGssig, sigTL, sigTLsig, sigR, sigRsig, biassig
@@ -92,6 +137,11 @@ ISO_TABLES = {
     "IMX686": _make_table(_IMX686_ROWS, q=1 / 2**10, wp=1023, bl=64, bias=_IMX686_BIAS),
 }
 
+# K(iso) linear model used for SonyA7S2 when an ISO is not in the table
+# (reference: data_process/process.py:455, runfiles ISO2K: [0.0009546, -0.00193]).
+SONY_ISO2K = (0.0009546, -0.00193)
+
+
 def iso_index(camera_type: str, iso) -> int:
     """Row index of ``iso`` in the camera's point-calibration table."""
     table = ISO_TABLES[camera_type]
@@ -99,3 +149,63 @@ def iso_index(camera_type: str, iso) -> int:
     if len(idx) == 0:
         raise KeyError(f"ISO {iso} not calibrated for {camera_type}")
     return int(idx[0])
+
+
+# -- user-supplied per-ISO calibration (noiseparam-iso-N.h5) -----------------
+# Constants the reference hardcodes alongside the h5-derived values
+# (reference: data_process/phone_datasets.py:99-112 — K/"Kmax" and the
+# per-channel read bias are NOT read from the file).
+IMX686_NOISEPARAM_KMAX = 8.7425333
+IMX686_NOISEPARAM_BIAS = np.array(
+    [-0.08113494, -0.04906388, -0.9408157, -1.2048522], np.float32)
+
+
+def load_noiseparam_h5(ds_dir, iso: int = 6400):
+    """Load a user's per-ISO IMX686 calibration file if present.
+
+    Mirrors reference phone_datasets.py:99-112: reads
+    ``{ds_dir}/noiseparam-iso-{iso}.h5`` and reduces the per-frame calibration
+    arrays to the sampling-law parameters (means + jitter stds). Returns the
+    noiseparam dict, or None when ``ds_dir`` is unset / the file is absent
+    (callers then fall back to the baked ``ISO_TABLES`` values).
+    """
+    import os
+
+    if not ds_dir:
+        return None
+    path = os.path.join(ds_dir, f"noiseparam-iso-{iso}.h5")
+    if not os.path.exists(path):
+        return None
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        lam = np.asarray(f["lam"])
+        sigGs = np.asarray(f["sigmaGs"])
+        sigTL = np.asarray(f["sigmaTL"])
+        sigR = np.asarray(f["sigmaR"])
+        mean_read = np.asarray(f["meanRead"])
+    return {
+        "K": IMX686_NOISEPARAM_KMAX,
+        "lam": float(np.mean(lam)),
+        "sigGs": float(np.mean(sigGs)), "sigGssig": float(np.std(sigGs)),
+        "sigTL": float(np.mean(sigTL)), "sigTLsig": float(np.std(sigTL)),
+        "sigR": float(np.mean(sigR)), "sigRsig": float(np.std(sigR)),
+        "bias": IMX686_NOISEPARAM_BIAS.copy(),
+        "biassig": np.std(mean_read, axis=1).astype(np.float32),
+        "q": 1 / 2**10, "wp": 1023, "bl": 64,
+    }
+
+
+def table_with_noiseparam(camera_type: str, iso, noiseparam: dict):
+    """Copy of ``ISO_TABLES[camera_type]`` with the row for ``iso`` replaced
+    by a user-supplied noiseparam dict (see :func:`load_noiseparam_h5`)."""
+    base = ISO_TABLES[camera_type]
+    i = iso_index(camera_type, iso)
+    table = {k: (np.array(v, copy=True) if isinstance(v, np.ndarray) else v)
+             for k, v in base.items()}
+    table["Kmax"][i] = noiseparam["K"]
+    for k in ("lam", "sigGs", "sigGssig", "sigTL", "sigTLsig", "sigR",
+              "sigRsig"):
+        table[k][i] = noiseparam[k]
+    table["bias"][i] = np.asarray(noiseparam["bias"], np.float32)
+    return table

@@ -1,20 +1,177 @@
-"""Eval steps: padded full-frame forward, fused with the eval metrics.
+"""Train and eval steps (counterpart of ``pnnp_tpu/train/steps.py``).
 
-Counterpart of the eval half of ``pnnp_tpu/train/steps.py``
-(``pad_split`` :354, ``pad_to_multiple`` :364, ``make_eval_metrics_step``
-:376-486, ``make_eval_step`` :489). The public layouts are the JAX
-package's: NHWC frames, or channel-interleaved flat ``[1, H, W*4]``; the
-steps convert to NCHW only around the model. The train steps (synth, loss,
-Adam) are still to be ported (ROADMAP 1.3-1.4).
+Train half (:33-351): the synth stages that turn a host batch into a noisy /
+clean pair on the device (``make_raw_synth``, the physics synth of the
+Raw_Dataset family; ``identity_synth``, for real pairs), and the train step:
+synth -> clip -> forward + L1 loss -> backward -> Adam scaled by
+``lr(epoch)``. Images are NCHW tensors on the device; every random draw
+comes from the ``torch.Generator`` passed to the step.
+
+Eval half (``pad_split`` :354, ``pad_to_multiple`` :364,
+``make_eval_metrics_step`` :376-486, ``make_eval_step`` :489): padded
+full-frame forward fused with the eval metrics. Its public layouts are the
+JAX package's: NHWC frames, or channel-interleaved flat ``[1, H, W*4]``; the
+steps convert to NCHW only around the model.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from pnnp_tpu_torch.kernels.ssim import ssim_flat
 from pnnp_tpu_torch.ops.correct import illuminance_correct
+from pnnp_tpu_torch.physics.calibration import HALF_CLIP
+from pnnp_tpu_torch.physics.noise import generate_noisy
+from pnnp_tpu_torch.physics.sampling import sample_params_max
+from pnnp_tpu_torch.train.losses import unet_loss
+from pnnp_tpu_torch.train.state import apply_scaled_updates
+
+
+def clip_lr_hr(lr, hr, clip_mode):
+    """Reference clip semantics (trainer_SID.py:481-485): clip=2 (HALF_CLIP)
+    keeps the sensor's negative read-noise floor on lr; clip=1 clamps to 0."""
+    if clip_mode:
+        lr = lr.clamp_max(1.0) if clip_mode == HALF_CLIP else lr.clamp(0.0, 1.0)
+        hr = hr.clamp(0.0, 1.0)
+    return lr, hr
+
+
+def _gtdn_ratio(generator: torch.Generator, n: int) -> torch.Tensor:
+    """'GTdn' command ratio law: max(U(-3, 4), 1) per example — mostly 1
+    (GT-denoising mode), occasionally up to 4 (reference syn_datasets.py:334)."""
+    u = torch.rand(n, generator=generator, device=generator.device)
+    return (u * 7.0 - 3.0).clamp_min(1.0)
+
+
+def _noiseparam_table(camera_type, iso, noiseparam):
+    """ISO-table override from a user noiseparam-iso-N.h5 dict (or None)."""
+    if noiseparam is None or iso is None:
+        return None
+    from pnnp_tpu_torch.physics.calibration import table_with_noiseparam
+
+    return table_with_noiseparam(camera_type, iso, noiseparam)
+
+
+def _raw_synth_params(generator, camera_type, n, iso, ratio, gtdn, lrid, table=None):
+    """Parameter draw of the raw synth.
+
+    ``lrid=True`` applies the trainer_LRID.py:399-418 IMX686 law: the
+    dataset's point-calibrated ISO params with ONLY K jittered (sigmas at
+    their means) and a per-example LINEAR ``ratio ~ U(1, 16)`` — distinct
+    from process.py:344-348's generic exp-uniform law.
+    """
+    if lrid:
+        ratio = torch.rand(n, generator=generator, device=generator.device) * 15.0 + 1.0
+    params = sample_params_max(generator, camera_type, n=n, ratio=ratio, iso=iso,
+                               jitter_sigmas=not lrid, table=table)
+    if gtdn:
+        params = dict(params, ratio=_gtdn_ratio(generator, n))
+    return params
+
+
+def make_raw_synth(camera_type: str, noise_code: str, ori: bool, clip: bool,
+                   iso=None, ratio=None, gtdn: bool = False,
+                   lrid: bool = False, noiseparam: Optional[dict] = None):
+    """Physics noise synthesis on clean GT crops, batched:
+    ``synth(generator, batch) -> (lr, hr, ratio)`` with ``batch["hr"]``
+    [n, 4, h, w] on the device.
+
+    ``noiseparam``: user-supplied per-ISO calibration (the reference's
+    ``noiseparam-iso-N.h5`` ingestion, phone_datasets.py:99-112) overriding
+    the baked table row for ``iso``."""
+    table = _noiseparam_table(camera_type, iso, noiseparam)
+
+    def synth(generator, batch):
+        hr = batch["hr"]
+        params = _raw_synth_params(generator, camera_type, hr.shape[0], iso, ratio,
+                                   gtdn, lrid, table)
+        lr = generate_noisy(generator, hr, params, noise_code, ori=ori, clip=bool(clip))
+        return lr, hr, params["ratio"]
+
+    return synth
+
+
+def identity_synth(generator, batch):
+    """Real paired data (paired training): no synthesis."""
+    hr = batch["hr"]
+    ratio = batch.get("ratio")
+    if ratio is None:
+        ratio = torch.ones(hr.shape[0], device=hr.device)
+    return batch["lr"], hr, ratio
+
+
+class TrainStep:
+    """``step(model, opt, batch, generator, epoch) -> metrics``.
+
+    synth (no gradient) -> :func:`clip_lr_hr` -> forward + :func:`unet_loss`
+    -> backward -> Adam scaled by ``lr_schedule(epoch)``. ``model`` holds
+    float32 master parameters and ``opt`` is its
+    :func:`~pnnp_tpu_torch.train.state.make_adam`. Metrics: ``loss`` and
+    ``psnr`` (on the clipped prediction and target, float32) as 0-dim
+    tensors on the device, ``lr`` as a float.
+
+    ``bf16=True`` runs the forward and the loss under ``torch.autocast`` in
+    bfloat16 (the JAX package's fast path: f32 master params, bf16 forward);
+    otherwise the step is exact float32, with TF32 off.
+
+    The stages are methods so that they can be timed one by one:
+    :meth:`make_pair`, :meth:`forward_backward`, :meth:`update`.
+    """
+
+    def __init__(self, lr_schedule: Callable, synth: Callable = identity_synth,
+                 clip_mode=0, bf16: bool = False, clip_norm: Optional[float] = None):
+        self.lr_schedule = lr_schedule
+        self.synth = synth
+        self.clip_mode = clip_mode
+        self.bf16 = bf16
+        self.clip_norm = clip_norm
+
+    @torch.no_grad()
+    def make_pair(self, batch, generator):
+        lr_img, hr_img, _ = self.synth(generator, batch)
+        return clip_lr_hr(lr_img, hr_img, self.clip_mode)
+
+    def forward_backward(self, model, lr_img, hr_img):
+        """Fills the parameters' ``.grad``; returns (loss, pred), detached."""
+        model.zero_grad(set_to_none=True)
+        if self.bf16:
+            with torch.autocast(lr_img.device.type, dtype=torch.bfloat16):
+                pred = model(lr_img)
+                loss = unet_loss(pred, hr_img)
+        else:
+            _exact_f32(model)
+            pred = model(lr_img)
+            loss = unet_loss(pred, hr_img)
+        loss.backward()
+        return loss.detach(), pred.detach()
+
+    def update(self, opt, epoch) -> float:
+        lr = float(self.lr_schedule(epoch))
+        apply_scaled_updates(opt, lr, self.clip_norm)
+        return lr
+
+    def __call__(self, model, opt, batch, generator, epoch) -> dict:
+        lr_img, hr_img = self.make_pair(batch, generator)
+        loss, pred = self.forward_backward(model, lr_img, hr_img)
+        lr = self.update(opt, epoch)
+        with torch.no_grad():
+            mse = torch.mean((pred.clamp(0.0, 1.0) - hr_img.clamp(0.0, 1.0)) ** 2)
+            psnr = 10.0 * torch.log10(1.0 / mse.clamp_min(1e-12))
+        return {"loss": loss, "psnr": psnr, "lr": lr}
+
+
+def make_train_step(lr_schedule: Callable, synth: Callable = identity_synth,
+                    clip_mode=0, deep_supervision: bool = False, bf16: bool = False,
+                    clip_norm: Optional[float] = None) -> TrainStep:
+    """Build the train step (see :class:`TrainStep`)."""
+    if deep_supervision:
+        raise NotImplementedError(
+            "deep supervision (use_dpsv) training is not ported yet (ROADMAP 1.13)")
+    return TrainStep(lr_schedule, synth, clip_mode=clip_mode, bf16=bf16,
+                     clip_norm=clip_norm)
 
 
 def pad_split(n: int, mult: int = 16):

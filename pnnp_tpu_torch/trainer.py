@@ -1,17 +1,31 @@
-"""Trainer: runfile-driven evaluation on the card (counterpart of
-``pnnp_tpu/trainer.py``).
+"""Trainer: runfile-driven training and evaluation on the card (counterpart
+of ``pnnp_tpu/trainer.py``).
 
 Same CLI surface (``python -m pnnp_tpu_torch.trainer -f runfile --mode
-{eval,test,evaltest,dump}``), same YAML runfiles, same log lines, metrics
-pickle and checkpoint files. Eval serves UNetSeeInDark in bf16 (f32 with
-``disable_fast_path: true``) through one fused step: forward, clip,
-illuminance correction, PSNR and the CUDA SSIM kernel.
+{train,trainonly,eval,test,evaltest,dump}``), same YAML runfiles, same log
+lines, metrics pickle and checkpoint files; a checkpoint written by either
+package loads in the other.
+
+Training keeps float32 master parameters and steps through
+:class:`~pnnp_tpu_torch.train.steps.TrainStep`: the on-device synth picked
+from the train dataset (physics ``Raw_Dataset``, or real pairs), then
+forward, L1, backward and Adam scaled by ``lr(epoch)``. UNetSeeInDark
+trains with a bf16 forward under autocast (f32 with ``disable_fast_path:
+true``). ``train`` evaluates every ``plot_freq`` epochs, reloads the best
+weights at each SGDR period boundary, and ends with the ``evaltest`` sweep
+over the best weights; ``trainonly`` trains without the eval legs.
+
+Eval serves UNetSeeInDark in bf16 (f32 with ``disable_fast_path: true``)
+through one fused step: forward, clip, illuminance correction, PSNR and the
+CUDA SSIM kernel. In the train modes it serves a bf16 copy of the master
+weights, refreshed at each eval leg.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-the ``train``/``trainonly`` modes (1.3-1.4), ``--int8`` serving (1.15),
-``rgb_metrics`` (1.14) and :meth:`Trainer.predict` (1.14). With ``save_plot``
-the input meters are computed, but figure rendering (1.14) is skipped with
-one logged line.
+the proxy and NoiseFlow synths (1.9, 1.12), the Mix/SFRN/IMX686 synth
+families (1.11), deep supervision (1.13), ``--int8`` serving (1.15),
+``rgb_metrics`` (1.14) and :meth:`Trainer.predict` (1.14). With
+``save_plot`` the input meters are computed, but figure rendering (1.14) is
+skipped with one logged line.
 """
 
 from __future__ import annotations
@@ -19,6 +33,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import time
 from typing import Optional
 
 import numpy as np
@@ -26,19 +41,25 @@ import torch
 
 from pnnp_tpu_torch.config import command_of, load_runfile
 from pnnp_tpu_torch.data import DataLoader, build_dataset
-from pnnp_tpu_torch.models import build_model, params_from_jax
+from pnnp_tpu_torch.models import build_model, params_from_jax, params_to_jax
 from pnnp_tpu_torch.ops import illuminance_correct
 from pnnp_tpu_torch.train import (
     CheckpointManager,
+    build_lr_schedule,
+    identity_synth,
     load_any,
+    make_adam,
     make_eval_metrics_step,
     make_eval_step,
+    make_raw_synth,
+    make_train_step,
 )
 from pnnp_tpu_torch.utils.device import resolve_device
-from pnnp_tpu_torch.utils.logging import AverageMeter, log
+from pnnp_tpu_torch.utils.logging import AverageMeter, StepTimer, log
 
 _FIGURES_SKIPPED = ("figure rendering is not ported yet (ROADMAP 1.14: ISP); "
                     "sample figures skipped")
+_TRAIN_MODES = ("train", "trainonly")
 
 
 class Parser:
@@ -65,10 +86,6 @@ class Trainer:
                  int8: bool = False, device=None):
         self.args = load_runfile(runfile, mode=mode, root_prefix=root_prefix)
         self.mode = self.args["mode"]
-        if self.mode in ("train", "trainonly"):
-            raise NotImplementedError(
-                f"mode '{self.mode}': training is not ported yet (ROADMAP "
-                "1.3-1.4); this package serves eval/test/evaltest/dump")
         if int8:
             raise NotImplementedError(
                 "--int8 serving is not ported yet (ROADMAP 1.15)")
@@ -83,6 +100,7 @@ class Trainer:
         self.save_plot = not nofig
         self.debug = debug
         self.seed = seed
+        self.training = self.mode in _TRAIN_MODES
 
         self.logfile = f"./logs/log_{self.model_name}.log"
         self.sample_dir = os.path.join(self.args.get("result_dir", "images"),
@@ -92,16 +110,20 @@ class Trainer:
         os.makedirs("./metrics", exist_ok=True)
 
         # --- model ---------------------------------------------------------
-        # UNetSeeInDark serves in bf16 (bf16 weights and activations, f32
-        # after the forward), like the JAX fused eval's transform_params_hybrid
-        # default; disable_fast_path serves in f32, like make_eval_step(fast=False).
-        bf16 = (self.arch.get("name") == "UNetSeeInDark"
+        # UNetSeeInDark computes in bf16 (the JAX package's fast path: bf16
+        # serving, and training of f32 master params through a bf16
+        # forward); disable_fast_path computes in f32, like fast=False.
+        fast = (self.arch.get("name") == "UNetSeeInDark"
                 and not self.arch.get("use_dpsv", False)
                 and not self.args.get("disable_fast_path", False))
-        self.dtype = torch.bfloat16 if bf16 else torch.float32
-        gen = torch.Generator().manual_seed(seed)
-        self.model = build_model(self.arch, dtype=self.dtype,
-                                 generator=gen).to(self.device).eval()
+        self.dtype = torch.bfloat16 if fast else torch.float32
+        # Training holds f32 master params; eval modes hold the serving
+        # weights themselves. Eval legs in training serve a copy in
+        # self.dtype, refreshed from the master at each leg.
+        self.model = self._new_model(torch.float32 if self.training else self.dtype)
+        self.eval_model = (self.model if self.model.dtype == self.dtype
+                           else self._new_model(self.dtype).eval())
+        self.lr_schedule = build_lr_schedule(self.hyper)
 
         # --- checkpoints ---------------------------------------------------
         self.ckpt = CheckpointManager(
@@ -111,27 +133,49 @@ class Trainer:
             save_freq=self.hyper.get("save_freq", 10),
         )
         self.ckpt.best_psnr = self.hyper.get("best_psnr", 0)
-        self._try_restore()
+        self.last_epoch = int(self.hyper.get("last_epoch", 0))
+        if self.last_epoch > 0 or self.mode != "train":
+            self._try_restore()
 
-        # --- datasets ------------------------------------------------------
+        # --- train step (before the datasets: unported families raise) ----
+        self.dst_train = self.args.get("dst_train")
         self.dst_eval = self.args.get("dst_eval")
         self.dst_test = self.args.get("dst_test")
+        self.synth = self._make_synth()
+        self.train_step = self.opt = None
+        if self.training:
+            self.train_step = make_train_step(
+                self.lr_schedule, self.synth, clip_mode=self.dst.get("clip", 0),
+                deep_supervision=bool(self.arch.get("use_dpsv", False)), bf16=fast)
+            self.opt = make_adam(self.model.parameters())
+
+        # --- datasets ------------------------------------------------------
+        self.dataset_train = None
         self.dataset_eval = None
-        if self.dst_eval:
+        if self.training and self.dst_train:
+            self.dataset_train = build_dataset(self.dst_train, seed=seed)
+        if self.dst_eval and self.mode != "trainonly":
             self.dataset_eval = build_dataset(self.dst_eval, seed=seed)
 
-        # --- steps ---------------------------------------------------------
-        self.eval_step = make_eval_step(self.model)
-        self._fused_eval = make_eval_metrics_step(self.model)
+        # --- eval steps ----------------------------------------------------
+        self.eval_step = make_eval_step(self.eval_model)
+        self._fused_eval = make_eval_metrics_step(self.eval_model)
 
         # --- meters --------------------------------------------------------
+        self.train_psnr = AverageMeter("PSNR", ":2f")
         self.eval_psnr = AverageMeter("PSNR", ":2f")
         self.eval_ssim = AverageMeter("SSIM", ":4f")
         self.eval_psnr_lr = AverageMeter("PSNR", ":2f")
         self.eval_ssim_lr = AverageMeter("SSIM", ":4f")
         self.eval_psnr_dn = AverageMeter("PSNR", ":2f")
         self.eval_ssim_dn = AverageMeter("SSIM", ":4f")
+        self.timer = StepTimer()
         self._print_model_log()
+
+    def _new_model(self, dtype):
+        """The arch at its N(0, 0.02) init from the trainer's seed, on the device."""
+        gen = torch.Generator().manual_seed(self.seed)
+        return build_model(self.arch, dtype=dtype, generator=gen).to(self.device)
 
     # ------------------------------------------------------------------
     def _print_model_log(self):
@@ -158,16 +202,66 @@ class Trainer:
             log(line, logfile=self.logfile, notime=True)
 
     def _load_params(self, params):
+        """Copy a JAX parameter tree into the (master) model, in place: the
+        optimizer keeps its parameters and its moments."""
         self.model.load_state_dict(params_from_jax(params), strict=True)
 
+    def _make_synth(self):
+        """The on-device synthesis stage, by train dataset (the reference
+        preprocess dispatch, trainer_SID.py:428-472). Families not ported yet
+        raise: falling through to identity_synth would train the net on
+        noise-free pairs (lr == hr) for the whole run."""
+        if not self.dst_train or not self.training:
+            return identity_synth
+        name = self.dst_train["dataset"]
+        if name in ("Proxy_Dataset", "IMX686_Proxy_Dataset"):
+            raise NotImplementedError(
+                f"{name}: the learned proxy synth is not ported yet (ROADMAP 1.9)")
+        if name in ("NF_Syn_Dataset", "IMX686_NF_Syn_Dataset"):
+            raise NotImplementedError(
+                f"{name}: the NoiseFlow synth is not ported yet (ROADMAP 1.12)")
+        if name in ("Mix_Dataset", "IMX686_Mix_Dataset", "SFRN_Dataset",
+                    "IMX686_SFRN_Raw_Dataset", "IMX686_Raw_Dataset"):
+            raise NotImplementedError(
+                f"{name}: this synth family is not ported yet (ROADMAP 1.11)")
+        if name == "Raw_Dataset":
+            # dataset-level flags live in the dst_train block (falling back to
+            # the shared dst block); either may be an explicit empty string
+            command = self.dst_train.get("command") or self.dst.get("command") or ""
+            return make_raw_synth(
+                self.dst.get("camera_type", "SonyA7S2"), self.dst.get("noise_code", "p"),
+                bool(self.dst.get("ori", False)), self.dst.get("clip", 0),
+                gtdn="GTdn" in command)
+        return identity_synth
+
     def _try_restore(self):
-        # eval modes want the best-PSNR weights (best -> last -> fresh init)
-        restored = self.ckpt.restore("best")
+        # trainonly is a training mode: resume from 'last' like 'train'
+        # (eval modes want the best-PSNR weights: best -> last -> fresh init)
+        restored = self.ckpt.restore("last" if self.training else "best")
         if restored is not None:
             self._load_params(restored["params"])
             log(f"Restored checkpoint (epoch {restored['meta'].get('epoch')})")
         else:
             log("No checkpoint found; using fresh init")
+
+    def _recover_state(self):
+        """Params from the last checkpoint (fresh init if none) and a fresh
+        optimizer, after a step failed part way."""
+        self.model.load_state_dict(self._new_model(torch.float32).state_dict())
+        restored = self.ckpt.restore("last")
+        if restored is not None:
+            self._load_params(restored["params"])
+            log(f"Recovered params from last checkpoint "
+                f"(epoch {restored['meta'].get('epoch')})")
+        else:
+            log("No checkpoint to recover from; re-initialized fresh params")
+        self.opt = make_adam(self.model.parameters())
+
+    def _refresh_eval_model(self):
+        """Serve the master weights: copy them into the eval model when it is
+        a separate (bf16) copy."""
+        if self.eval_model is not self.model:
+            self.eval_model.load_state_dict(self.model.state_dict())
 
     def load_torch_checkpoint(self, path: str):
         self._load_params(load_any(path)["params"])
@@ -175,6 +269,87 @@ class Trainer:
 
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _train_batch(self, batch: dict) -> dict:
+        """Host batch -> the tensors the synth reads, on the device, images
+        NCHW: the physics synth reads the clean crops only; real pairs need
+        lr, hr and the ratio."""
+        keys = ("lr", "hr", "ratio") if self.synth is identity_synth else ("hr",)
+        out = {}
+        for k in keys:
+            if k in batch:
+                t = self._to_device(batch[k])
+                out[k] = t.permute(0, 3, 1, 2).contiguous() if t.dim() == 4 else t
+        return out
+
+    # ------------------------------------------------------------------
+    def train(self):
+        assert self.dataset_train is not None
+        bs = int(self.hyper.get("batch_size", 1))
+        loader = DataLoader(
+            self.dataset_train, batch_size=bs, shuffle=True,
+            num_workers=0 if self.debug else int(self.args.get("num_workers", 2)),
+            seed=self.seed,
+        )
+        stop_epoch = int(self.hyper.get("stop_epoch", 100))
+        plot_freq = int(self.hyper.get("plot_freq", 50))
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.model.train()
+
+        for epoch in range(self.last_epoch + 1, stop_epoch + 1):
+            self.train_psnr.reset()
+            self.timer.reset()
+            loader.set_epoch(epoch)
+            t0 = time.time()
+            try:
+                for batch in loader:
+                    self.timer.tick("loader")
+                    metrics = self.train_step(self.model, self.opt, self._train_batch(batch),
+                                              gen, epoch)
+                    # the step's one sync, inside 'net': the bucket holds the
+                    # device time, and 'loader' only the wait for the host
+                    self.train_psnr.update(float(metrics["psnr"]))
+                    self.timer.tick("net")
+            except RuntimeError as e:
+                # Fault tolerance: log and continue with the next epoch (the
+                # reference does the same for OOM-class failures,
+                # trainer_LRID.py:131-135). The lr is a pure function of the
+                # epoch, so skipping a partial epoch is safe; a step that
+                # failed part way may have left the params half updated, so
+                # they come back from the last checkpoint.
+                log(f"Epoch {epoch} aborted by RuntimeError: {e}; recovering state")
+                self._recover_state()
+            self.train_psnr.record()
+            shares = self.timer.shares()
+            log(
+                f"Epoch {epoch}: loss ok, train_psnr={self.train_psnr.avg:.2f}, "
+                f"lr={float(self.lr_schedule(epoch)):.2e}, "
+                f"time={time.time() - t0:.1f}s "
+                f"[loader {shares.get('loader', 0):.0%} net {shares.get('net', 0):.0%}]"
+            )
+
+            eval_psnr = None
+            if self.dataset_eval is not None and epoch % plot_freq == 0:
+                if hasattr(self.dataset_eval, "fast_eval"):
+                    self.dataset_eval.fast_eval(True)
+                self.eval(epoch)
+                eval_psnr = self.eval_psnr.avg
+                if hasattr(self.dataset_eval, "fast_eval"):
+                    self.dataset_eval.fast_eval(False)
+            is_best = self.ckpt.save(epoch, params_to_jax(self.model.state_dict()),
+                                     None, eval_psnr)
+            if is_best:
+                log(f"Best PSNR is {self.ckpt.best_psnr:.2f} now!!")
+
+            # SGDR period boundary: reload best (reference: trainer_SID.py:169-179);
+            # the params change in place, the Adam moments stay
+            T = self.hyper.get("T", 1)
+            period = max((stop_epoch - self.last_epoch) // max(T, 1), 1)
+            if epoch % period == 0 and epoch < stop_epoch:
+                restored = self.ckpt.restore("best")
+                if restored is not None:
+                    self._load_params(restored["params"])
+                    log("Period boundary: reloaded best checkpoint")
 
     def _brightness_correct(self, dst: dict) -> bool:
         # The reference's LRID trainer never calls IlluminanceCorrect in eval
@@ -189,6 +364,7 @@ class Trainer:
         """Eval loop with the reference's metric/log contract
         (trainer_SID.py:181-320), every metric computed on the device."""
         assert self.dataset_eval is not None
+        self._refresh_eval_model()
         for m in (self.eval_psnr, self.eval_ssim, self.eval_psnr_lr,
                   self.eval_ssim_lr, self.eval_psnr_dn, self.eval_ssim_dn):
             m.reset()
@@ -242,6 +418,7 @@ class Trainer:
         dst = self.dst_test or self.dst_eval
         assert dst is not None, "no dst_test/dst_eval block in runfile"
         dataset = build_dataset(dict(dst, mode="eval"), seed=self.seed)
+        self._refresh_eval_model()
         out_dir = out_dir or os.path.join(self.sample_dir, "test")
         os.makedirs(out_dir, exist_ok=True)
         correct = self._brightness_correct(dst)
@@ -305,12 +482,22 @@ def eval_sweep(trainer, ds, ratios):
         trainer.eval(-1)
 
 
-def main(argv=None):
-    """CLI entry; runs on ``cuda:<--gpu>``. Returns the Trainer."""
+def main(argv=None, device=None):
+    """CLI entry; runs on ``cuda:<--gpu>`` unless ``device`` names another
+    (``device="cpu"`` for a run on the host). Returns the Trainer."""
     p = Parser.parse(argv)
     trainer = Trainer(p.runfile, mode=p.mode, nofig=p.nofig, debug=p.debug,
-                      int8=p.int8, device=f"cuda:{p.gpu}")
+                      int8=p.int8, device=device or f"cuda:{p.gpu}")
     mode = trainer.mode
+    if mode in _TRAIN_MODES:
+        trainer.train()
+        if mode == "train":
+            # reference: a finished training run reloads the BEST weights and
+            # falls through to the full evaltest sweep (trainer_SID.py:521-534)
+            restored = trainer.ckpt.restore("best")
+            if restored is not None:
+                trainer._load_params(restored["params"])
+            mode = "evaltest"
     if mode == "dump":
         # output-saving denoise pass over the test split — the reference's
         # test() METHOD (trainer_SID.py:362-420); distinct from --mode test,

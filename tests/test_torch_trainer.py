@@ -148,8 +148,6 @@ def test_eval_bf16_matches_jax(slice_setup, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,kw,item", [
-    ({"mode": "train"}, {}, "1.3-1.4"),
-    ({"mode": "trainonly"}, {}, "1.3-1.4"),
     ({}, {"int8": True}, "1.15"),
     ({"rgb_metrics": True}, {}, "1.14"),
 ])
