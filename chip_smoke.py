@@ -32,7 +32,26 @@ and no result line):
    boundary, and 12 SSIM launches, all ``hopper``; then one f32 step at
    nf=4 on 8x32^2 on the card against the same step on the CPU, and the
    bf16 step's gradients against the f32 ones on the card;
-5. timings with CUDA events after warm-up: the fused eval step in bf16 and
+5. the proxy at PNNP.yml's width (d=1024) on the card against the CPU:
+   ``quantile`` / ``quantile_dot``, the loss and its gradients, and the
+   sample's moments at the recipe shape (8 x 4 x 512 x 512) against the
+   closed form (tests/test_torch_cuda_proxy.py runs the same checks);
+6. the ISO ladder: ``pnnp_tpu_torch/tools/validate_proxy.py`` at the budget
+   of tests/test_proxy_iso_ladder.py (4000 steps, d=256, 8 x 32^2), for
+   three seeds (``tools/ladder_spread.py``): the trained ISOs held to that
+   test's KLD bars in every run, the held-out ISO 6400 reported against its
+   bar;
+7. the paper's method (``runfiles/SonyA7S2/PNNP.yml``) on a 4-scene
+   2848x4256 fixture: ``pnnp_tpu_torch.trainer_nf.main --kind proxy`` (its
+   ``arch_proxy`` at d=1024, SID pairs, one 512^2 crop per step, 2 epochs;
+   finite NLL, a KLD line per epoch, the checkpoint, ms per step and peak
+   memory), then ``pnnp_tpu_torch.trainer.main --mode train`` of PNNP.yml
+   (UNetSeeInDark nf=32, ``Proxy_Dataset``, 8 crops of 512^2, 2 epochs at
+   its lr held fixed, an eval leg per epoch over the SID 250 split, then
+   ``evaltest``) driven by that checkpoint: the proxy drew the noise of
+   every step, finite losses, moved params, 12 SSIM launches, all
+   ``hopper``;
+8. timings with CUDA events after warm-up: the fused eval step in bf16 and
    in f32 at the full frame (median per call, plus a torch.profiler
    breakdown by kernel and the device's idle share), each kernel route
    (mean over back-to-back launches, the two routes in turns) at the Sony
@@ -41,12 +60,16 @@ and no result line):
    warm-ups, the split synth / forward + backward / Adam, a profiler
    breakdown with the idle share, the FLOP bound) and the host loader's
    time per batch (one full frame -> 8 crops): on one thread, and at the
-   runfile's 4 workers over 32 batches, alone and feeding the train step.
+   runfile's 4 workers over 32 batches, alone and feeding the train step;
+   and the proxy: its synth beside the physics synth at 8 x 512^2 (in
+   turns), the bf16 train step with the proxy synth (split, peak memory),
+   the proxy NLL step at one 512^2 crop (d=1024, with a profile) and at the
+   ladder's shape (d=256), each with its peak memory and forward FLOP bound.
 
 Output: one ``timings`` JSON line, one ``kernels`` JSON line (a row per
 SSIM route: ``ssim`` is the ``hopper`` route of the main path,
-``ssim_generic`` the first CUDA version; ``launches`` sums the eval and the
-train runs, ``launches_by_path`` keeps each), the ``nvidia-smi`` name/power-limit line, and last
+``ssim_generic`` the first CUDA version; ``launches`` sums the eval, the
+train and the PNNP runs, ``launches_by_path`` keeps each), the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
 
@@ -84,6 +107,15 @@ SSIM_OPS_PER_WINDOW = 89  # 5 separable 7+7-tap sums (60) + the SSIM formula (29
 TRAIN_SCENES, TRAIN_EPOCHS = 4, 2  # batch_size 1: one frame (8 crops) per step
 TRAIN_LR = 2e-4  # ELD.yml's learning_rate, held fixed (WarmupCosine is 0 here)
 CROPS, PATCH = 8, 512
+PNNP_LR = 1e-4  # PNNP.yml's learning_rate, held fixed
+PROXY_D = 1024  # PNNP.yml's arch_proxy.d
+NF_LR = 1e-3  # the proxy trainer's fixed lr
+# tests/test_proxy_iso_ladder.py:27's budget, at the JAX tool's defaults, and
+# the seeds of the ladder's runs (each a fresh init draw and training stream)
+LADDER_ARGS = ["--steps", "4000", "--eval-frames", "16", "--d", "256", "--patch", "32",
+               "--batch", "8"]
+LADDER_SEEDS = "0,1,2"
+CDF_FLOP = 30  # per Gaussian-CDF term of the pixel NLL: the CDF and its bin difference
 
 
 def _structured(shape, seed):
@@ -786,6 +818,434 @@ def phase_timings(dev):
     return rows, timings
 
 
+# ------------------------------------------------------------------ proxy
+def _pnnp_yml():
+    from pnnp_tpu_torch.config import load_runfile
+
+    return load_runfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                     "runfiles", "SonyA7S2", "PNNP.yml"))
+
+
+def _fresh_proxy(dev, d=None):
+    """PNNP.yml's arch_proxy (at width ``d``, default PROXY_D) at flax's init
+    law (seed 0), on ``dev``."""
+    from pnnp_tpu_torch.models import build_proxy
+
+    arch = dict(_pnnp_yml()["arch_proxy"], d=d or PROXY_D)
+    return build_proxy(arch, generator=torch.Generator().manual_seed(0)).to(dev)
+
+
+def proxy_quantile_check(dev):
+    """quantile and quantile_dot at d=1024 on the card against the CPU, on
+    the same heads, u and c: the core within 1e-6 of the knot span, draws
+    with the Laplace tail within 1e-6 of the largest |draw| (log1p)."""
+    from pnnp_tpu_torch.models import QuantileHead
+
+    proxy = _fresh_proxy("cpu")
+    with torch.no_grad():
+        _, hp, _ = proxy.heads(torch.tensor([800.0, 3200.0, 12800.0]), 3)
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.uniform(1e-6, 1 - 1e-6, (3, 4, 64, 64)).astype(np.float32))
+    c = torch.from_numpy(rng.uniform(0, 1, u.shape).astype(np.float32))
+    span = float((hp.knots[:, -1] - hp.knots[:, 0]).min())
+    hp_dev = type(hp)(*[t.to(dev) for t in hp])
+    errs = {}
+    for name in ("quantile", "quantile_dot"):
+        fn = getattr(QuantileHead, name)
+        for tail in (False, True):
+            cpu = fn(hp, u, c if tail else None)
+            card = fn(hp_dev, u.to(dev), c.to(dev) if tail else None).cpu()
+            scale = float(cpu.abs().max()) if tail else span
+            errs[f"{name}{'_tail' if tail else ''}"] = err = float((card - cpu).abs().max()) / scale
+            _check(err <= 1e-6, f"{name} (tail {tail}) card vs cpu: {err:.2e} of {scale}")
+    return errs
+
+
+def _dark_noise(seed, shape):
+    """Dark-noise-like residual, normalized: 3 ADU pixels + 1 ADU rows."""
+    rng = np.random.default_rng(seed)
+    n, c, h, w = shape
+    x = rng.normal(0, 3, shape) + rng.normal(0, 1, (n, c, h, 1))
+    return torch.from_numpy((x / 15871.0).astype(np.float32))
+
+
+def proxy_loss_check(dev):
+    """The proxy loss (nll, nll_px, nll_row) and its gradients at d=1024 on
+    the card against the CPU: 1e-5 relative, 1e-4 of each gradient's max."""
+    noise = _dark_noise(1, (2, 4, 64, 64))
+    iso = torch.tensor([800.0, 6400.0])
+    res = {}
+    for d in ("cpu", dev):
+        proxy = _fresh_proxy(d)
+        nll, aux = proxy.loss(noise.to(d), iso.to(d))
+        nll.backward()
+        res[str(d)] = ({"nll": nll.item(), **{k: v.item() for k, v in aux.items()}},
+                       {n: p.grad.cpu() for n, p in proxy.named_parameters()})
+    (lc, gc), (lh, gh) = res[str(dev)], res["cpu"]
+    loss_rel = max(abs(lc[k] - lh[k]) / abs(lh[k]) for k in lh)
+    grad_rel = max(float((gc[n] - g).abs().max() / g.abs().max()) for n, g in gh.items())
+    _check(loss_rel <= 1e-5, f"proxy loss card {lc} vs cpu {lh}")
+    _check(grad_rel <= 1e-4, f"proxy gradients card vs cpu: {grad_rel:.2e} of their max")
+    return {"loss_rel": loss_rel, "grad_rel_of_max": grad_rel, "loss": lh}
+
+
+def proxy_sample_check(dev):
+    """At the recipe shape (8 x 4 x 512 x 512, one ISO): the sample's
+    variance within 2% of the closed form (pixel + s0^2 + row + mean shot
+    K*clean_adu, over span^2), its mean within 3 standard errors of 0
+    (zero_mean; the row draws are shared along a row)."""
+    from pnnp_tpu_torch.models import QuantileHead
+
+    proxy = _fresh_proxy(dev)
+    n, iso = CROPS, 3200.0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    clean = torch.rand((n, 4, PATCH, PATCH), generator=gen, device=dev) * 0.02
+    span = proxy.wp - proxy.bl
+    with torch.no_grad():
+        noise = proxy.sample(clean, torch.tensor([iso], device=dev), gen)
+        feat, hp_px, hp_row = proxy.heads(torch.tensor([iso], device=dev), 1)
+        var_row = float(QuantileHead.variance(hp_row)) / span ** 2
+        var_px = (float(QuantileHead.variance(hp_px)) + proxy.smooth_s0 ** 2) / span ** 2
+        var_shot = float(feat[0, 0] * clean.mean() * span) / span ** 2
+        mean, var = float(noise.mean()), float(noise.var())
+    closed = var_px + var_row + var_shot
+    rows = n * 4 * PATCH
+    se = math.sqrt((var_px + var_shot) / noise.numel() + var_row / rows)
+    _check(torch.isfinite(noise).all() and noise.shape == clean.shape, "sample not finite")
+    _check(abs(var / closed - 1.0) <= 0.02, f"sample variance {var} vs closed form {closed}")
+    _check(abs(mean) <= 3 * se, f"sample mean {mean} vs standard error {se}")
+    return {"var_ratio": var / closed, "mean_in_se": mean / se, "shape": list(noise.shape)}
+
+
+def phase_proxy_checks(dev):
+    out = {"quantile_rel": proxy_quantile_check(dev), "loss": proxy_loss_check(dev),
+           "sample": proxy_sample_check(dev)}
+    print(f"proxy checks (card vs cpu, d={PROXY_D}): {out}", flush=True)
+    return out
+
+
+def phase_iso_ladder(dev):
+    """tools/validate_proxy.py on the card at the JAX ladder test's budget,
+    once per seed of LADDER_SEEDS (tools/ladder_spread.py): every run's NLL
+    finite and its trained ISOs inside the test's bars. The held-out ISO
+    6400 is reported against its bar, not held to it: how the conditioning
+    MLP interpolates between the trained ISOs at this budget depends on the
+    init draw (PERF.md, section 6), and the JAX test's bar was set on one draw,
+    its key 0."""
+    from pnnp_tpu_torch.tools.ladder_spread import main as spread
+
+    t0 = time.perf_counter()
+    res = spread(["--seeds", LADDER_SEEDS] + LADDER_ARGS, device=dev)
+    wall = time.perf_counter() - t0
+    for run in res["runs"]:
+        rows = run["rows"]
+        _check(math.isfinite(run["nll"]), f"ladder seed {run['seed']} nll {run['nll']}")
+        _check([r["iso"] for r in rows] == [800, 1600, 3200, 12800, 6400]
+               and all(math.isfinite(r["kld"]) and math.isfinite(r["row_kld"]) for r in rows),
+               f"ladder seed {run['seed']} rows {rows}")
+        _check(all(r["inside"] for r in rows if not r["heldout"]),
+               f"ladder seed {run['seed']}: a trained ISO over the test's bars: {rows}")
+    held = res["spread"][6400]
+    print(f"iso ladder: {LADDER_ARGS}, seeds {LADDER_SEEDS}, in {wall:.1f} s; trained ISOs "
+          f"inside the test's bars in every run; held-out 6400 inside its bar in "
+          f"{held['inside']} of {len(res['runs'])} runs (KLD {held['kld_min']}-"
+          f"{held['kld_max']}, row {held['row_kld_min']}-{held['row_kld_max']})", flush=True)
+    return dict(res, wall_s=wall)
+
+
+def _pnnp_dst(root):
+    """PNNP.yml's dst block on the smoke's SID fixture. The fixture has no
+    dark-shading resources: the paired loaders run without the command."""
+    dst = dict(_pnnp_yml()["dst"], root_dir=root, infos_dir=os.path.join(root, "infos"),
+               H=MOSAIC_H, W=MOSAIC_W, patch_size=PATCH, crop_per_image=CROPS)
+    dst.pop("mode", None)
+    return dst
+
+
+def _nf_runfile(root):
+    """The proxy's NLL trainer: PNNP.yml's arch_proxy at full width on the
+    fixture's SID pairs, one 512^2 crop per step, 2 epochs."""
+    pnnp, dst = _pnnp_yml(), _pnnp_dst(root)
+    return {
+        "mode": "train", "model_name": "SonyA7S2_PNNP_proxy", "num_workers": 2,
+        "checkpoint": os.path.join(root, "saved_model"),
+        "fast_ckpt": os.path.join(root, "checkpoints"),
+        "dst": dst, "dst_train": dict(dst, dataset="SID_Dataset", mode="train",
+                                      command="idremap", crop_per_image=1),
+        "arch": dict(pnnp["arch"]), "arch_proxy": dict(pnnp["arch_proxy"], d=PROXY_D),
+        "hyper": {"lr_scheduler": "fixed", "learning_rate": NF_LR, "batch_size": 1,
+                  "last_epoch": 0, "stop_epoch": TRAIN_EPOCHS, "plot_freq": 1,
+                  "save_freq": 1},
+    }
+
+
+def _pnnp_runfile(root, proxy_ckpt):
+    """PNNP.yml's --mode train: its arch, arch_proxy and Proxy_Dataset, with
+    the proxy trainer's checkpoint; 8 crops of 512^2, 2 epochs at a fixed lr,
+    an eval leg per epoch over the SID 250 split, then evaltest."""
+    pnnp, dst = _pnnp_yml(), _pnnp_dst(root)
+    _check(pnnp["dst_train"]["dataset"] == "Proxy_Dataset", "PNNP.yml trains on Proxy_Dataset")
+    return {
+        "mode": "train", "model_name": pnnp["model_name"], "num_workers": 4,
+        "brightness_correct": True, "proxy_checkpoint": proxy_ckpt,
+        "checkpoint": os.path.join(root, "saved_model"),
+        "fast_ckpt": os.path.join(root, "checkpoints"),
+        "result_dir": os.path.join(root, "images"),
+        "dst": dst,
+        "dst_train": dict(_pnnp_dst(root), **{k: pnnp["dst_train"][k] for k in
+                                              ("dataset", "mode", "command")}),
+        "dst_eval": dict(dst, dataset="SID_Dataset", mode="eval", command="",
+                         ratio_list=[250]),
+        "arch": dict(pnnp["arch"]), "arch_proxy": dict(pnnp["arch_proxy"], d=PROXY_D),
+        "hyper": dict(pnnp["hyper"], stop_epoch=TRAIN_EPOCHS, plot_freq=1,
+                      lr_scheduler="fixed", learning_rate=PNNP_LR, batch_size=1),
+    }
+
+
+def phase_pnnp_paths(dev):
+    """The paper's method end to end on one 4-scene 2848x4256 fixture:
+    ``trainer_nf.main --kind proxy`` (PNNP.yml's proxy at d=1024), then
+    ``trainer.main --mode train`` of PNNP.yml driven by its checkpoint.
+    Returns (SSIM launches of the PNNP run, what was checked)."""
+    import yaml
+
+    import pnnp_tpu_torch.kernels.ssim as K
+    import pnnp_tpu_torch.trainer as T
+    import pnnp_tpu_torch.trainer_nf as NF
+    from pnnp_tpu_torch.data.fixtures import make_sid_fixture, place_eval_split
+    from pnnp_tpu_torch.models import PixelWiseISOProxy, params_to_jax
+    from pnnp_tpu_torch.train import TrainStep, load_any
+
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="pnnp_proxy_") as root:
+        infos = make_sid_fixture(root, n_scenes=TRAIN_SCENES, H=MOSAIC_H, W=MOSAIC_W)
+        place_eval_split(root, infos, 250)
+        lines, log_t, log_nf = [], T.log, NF.log
+        logged = lambda base: (lambda s, *a, **k: (lines.append(str(s)), base(s, *a, **k)))
+        steps, make_step = [], NF.make_proxy_train_step
+
+        def timed_step(*a, **k):
+            step = make_step(*a, **k)
+
+            def run(*b):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                m = step(*b)
+                end.record()
+                steps.append((start, end, float(m["nll"])))
+                return m
+            return run
+
+        os.chdir(root)
+        T.log, NF.log = logged(log_t), logged(log_nf)
+        try:
+            # --- the proxy's NLL trainer ------------------------------------
+            yml = os.path.join(root, "nf.yml")
+            with open(yml, "w") as f:
+                yaml.safe_dump(_nf_runfile(root), f)
+            NF.make_proxy_train_step = timed_step
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                nf = NF.main(["-f", yml, "--kind", "proxy"])
+                torch.cuda.synchronize()
+                nf_wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                NF.make_proxy_train_step = make_step
+            text = "\n".join(lines)
+            nll_lines = re.findall(r"Epoch (\d+): nll/dim=(\S+) \(", text)
+            kld_lines = re.findall(r"Epoch (\d+): KLD fwd=(\S+) inv=(\S+) sym=(\S+)", text)
+            ckpt = nf.ckpt.last_path()
+            _check([int(e) for e, _ in nll_lines] == list(range(1, TRAIN_EPOCHS + 1))
+                   and all(math.isfinite(float(v)) for _, v in nll_lines),
+                   f"proxy trainer epoch lines {nll_lines}")
+            _check(len(kld_lines) == TRAIN_EPOCHS
+                   and all(math.isfinite(float(x)) for k in kld_lines for x in k[1:]),
+                   f"proxy trainer KLD lines {kld_lines}")
+            _check(os.path.exists(ckpt) and load_any(ckpt)["meta"]["epoch"] == TRAIN_EPOCHS,
+                   f"proxy checkpoint {ckpt}")
+            _check(nf.model.d == PROXY_D
+                   and all(p.device.type == dev.type for p in nf.model.parameters()),
+                   "proxy trainer not at d=1024 on the card")
+            step_ms = [a.elapsed_time(b) for a, b, _ in steps]
+            _check(len(steps) == TRAIN_SCENES * TRAIN_EPOCHS
+                   and all(math.isfinite(x) for *_, x in steps), f"proxy steps {steps}")
+            out["proxy_trainer"] = {
+                "wall_s": nf_wall, "steps": len(steps), "nll": [x for *_, x in steps],
+                "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+                "peak_mem_gib": peak / 2**30, "epoch_lines": nll_lines,
+                "kld_lines": kld_lines, "checkpoint": os.path.basename(ckpt)}
+            print(f"proxy trainer: {out['proxy_trainer']}", flush=True)
+            del nf
+            torch.cuda.empty_cache()
+
+            # --- PNNP.yml --mode train with the proxy synth -----------------
+            run = _pnnp_runfile(root, ckpt)
+            yml = os.path.join(root, "pnnp.yml")
+            with open(yml, "w") as f:
+                yaml.safe_dump(run, f)
+            losses, legs, samples = [], [], []
+            call, evaluate, sample = TrainStep.__call__, T.Trainer.eval, PixelWiseISOProxy.sample
+
+            def counted(self, model, opt, batch, gen, epoch):
+                m = call(self, model, opt, batch, gen, epoch)
+                losses.append(float(m["loss"]))
+                return m
+
+            def eval_leg(self, epoch=-1):
+                evaluate(self, epoch)
+                legs.append((self.eval_psnr.count, epoch))
+
+            def sampled(self, clean, iso, generator):
+                samples.append((tuple(clean.shape), clean.device.type))
+                return sample(self, clean, iso, generator)
+
+            TrainStep.__call__, T.Trainer.eval, PixelWiseISOProxy.sample = (
+                counted, eval_leg, sampled)
+            del lines[:]
+            try:
+                torch.cuda.synchronize()
+                K.launches = 0
+                K.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+                t0 = time.perf_counter()
+                trainer = T.main(["-f", yml, "--mode", "train", "--nofig"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {"ssim": K.launches, "by_route": dict(K.launches_by_route)}
+            finally:
+                TrainStep.__call__, T.Trainer.eval, PixelWiseISOProxy.sample = (
+                    call, evaluate, sample)
+        finally:
+            T.log, NF.log = log_t, log_nf
+            os.chdir(cwd)
+        text = "\n".join(lines)
+        steps_n = TRAIN_SCENES * TRAIN_EPOCHS
+        _check("aborted by RuntimeError" not in text, "a PNNP epoch was aborted")
+        _check(f"Loaded proxy checkpoint {ckpt}" in text, "proxy checkpoint not loaded")
+        _check(len(losses) == steps_n and all(math.isfinite(x) for x in losses),
+               f"PNNP steps {len(losses)} of {steps_n}, losses {losses}")
+        _check(samples == [((CROPS, 4, PATCH, PATCH), dev.type)] * steps_n,
+               f"proxy samples {samples}: the proxy was not the synth of every step")
+        want = [(TRAIN_SCENES, e) for e in range(1, TRAIN_EPOCHS + 1)] + [(TRAIN_SCENES, -1)]
+        _check(legs == want, f"PNNP eval legs (frames, epoch) {legs}, want {want}")
+        frames = sum(n for n, _ in legs)
+        _check(launches["ssim"] == frames == launches["by_route"]["hopper"],
+               f"PNNP SSIM launches {launches} for {frames} eval frames")
+        _check(trainer.proxy is not None and trainer.proxy.d == PROXY_D
+               and all(p.device.type == dev.type and not p.requires_grad
+                       for p in trainer.proxy.parameters()),
+               "the PNNP proxy is not the frozen d=1024 proxy on the card")
+        _check(int(trainer.arch["nf"]) == 32, "PNNP denoiser not at nf=32")
+        init = T.build_model(run["arch"], dtype=torch.float32,
+                             generator=torch.Generator().manual_seed(trainer.seed))
+        init = params_to_jax(init.state_dict())
+        last = load_any(os.path.join(run["fast_ckpt"], f"{run['model_name']}_last_model.ckpt"))
+        moved = max(float(np.abs(last["params"][n][k] - init[n][k]).max())
+                    for n in init for k in init[n])
+        _check(moved > 0.1 * PNNP_LR, f"PNNP params did not move: {moved}")
+        out["pnnp_main_path"] = {
+            "wall_s": wall, "steps": steps_n, "losses": losses, "eval_legs": legs,
+            "proxy_samples": len(samples), "launches": launches, "params_moved": moved,
+            "epoch_lines": [e for e in lines if ": loss ok," in e]}
+        print(f"PNNP path: --mode train (Proxy_Dataset, nf=32, proxy d={PROXY_D}), "
+              f"{steps_n} steps + {frames} eval frames in {wall:.2f} s; losses "
+              f"{[round(x, 5) for x in losses]}; launches {launches}; "
+              f"params moved by up to {moved}", flush=True)
+        ckpt_params = load_any(ckpt)["params"]
+    return launches, out, ckpt_params
+
+
+def _nll_step_ms(dev, proxy, n, h, w, iso=3200.0):
+    """Median CUDA-event time of one proxy NLL step (loss, backward, Adam)
+    on pgrq dark frames [n, 4, h, w], and the step's peak memory."""
+    from pnnp_tpu_torch.physics import calibration as calib
+    from pnnp_tpu_torch.physics.noise import generate_noisy
+    from pnnp_tpu_torch.train import make_adam
+    from pnnp_tpu_torch.trainer_nf import make_proxy_train_step
+
+    t = calib.ISO_TABLES["SonyA7S2"]
+    i = calib.iso_index("SonyA7S2", iso)
+    full = lambda v: torch.full((n,), float(v), device=dev)
+    params = dict(K=full(t["Kmax"][i]), sigTL=full(t["sigTL"][i]), sigR=full(t["sigR"][i]),
+                  sigGs=full(t["sigGs"][i]), lam=full(t["lam"][i]), q=full(t["q"]),
+                  bias=torch.zeros((n, 4), device=dev), ratio=full(1.0), wp=full(t["wp"]),
+                  bl=full(t["bl"]))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = generate_noisy(gen, torch.zeros((n, 4, h, w), device=dev), params, "pgrq",
+                           ori=True)
+    hr, ratio, isos = torch.zeros_like(noise), full(1.0), full(iso)
+    step = make_proxy_train_step(proxy, lambda e: 5e-4)
+    opt = make_adam(proxy.parameters())
+    call = lambda: step(opt, noise, hr, ratio, isos, 1)
+    ms = _time_ms(call, warmup=3, iters=10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    d = proxy.d
+    cdfs = n * 4 * h * w * (d + 1) + n * 4 * h * (d + 1)  # pixel + row terms, forward
+    bound = cdfs * CDF_FLOP / FP32_FLOP_PER_S * 1e3
+    return {"shape": [n, 4, h, w], "d": d, "ms": ms, "peak_mem_gib": peak / 2**30,
+            "cdf_terms": cdfs, "fwd_flop_bound_ms": bound, "bound_share": bound / ms}, call
+
+
+def phase_proxy_timings(dev, batch, proxy_params):
+    """The proxy synth beside the physics synth at the main path's batch
+    (8 x 512^2), the bf16 train step with the proxy synth, and the proxy
+    NLL step at patch 512 (d=1024) and at the ladder's shape (d=256)."""
+    from pnnp_tpu_torch.models import UNetSeeInDark, params_from_jax
+    from pnnp_tpu_torch.train import make_adam, make_proxy_synth, make_raw_synth, make_train_step
+
+    proxy = _fresh_proxy(dev)
+    proxy.load_state_dict(params_from_jax(proxy_params), strict=True)
+    proxy.requires_grad_(False)
+    synths = {
+        "proxy": make_proxy_synth(lambda g, clean, iso: proxy.sample(clean, iso, g)),
+        "physics": make_raw_synth("SonyA7S2", "pgrq", ori=False, clip=True),
+    }
+    synth_ms = {}
+    for name in ("proxy", "physics", "physics", "proxy"):  # in turns
+        step = make_train_step(lambda e: PNNP_LR, synths[name], clip_mode=2, bf16=True)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        synth_ms.setdefault(name, []).append(
+            _time_ms(lambda: step.make_pair(batch, gen), warmup=3, iters=10))
+    net = UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_adam(net.parameters())
+    step = make_train_step(lambda e: PNNP_LR, synths["proxy"], clip_mode=2, bf16=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    call = lambda: step(net, opt, batch, gen, 1)
+    train_ms = _time_ms(call, warmup=3, iters=10)
+    split = _split_ms(step, net, opt, batch, gen)
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
+    del net, opt, step, call
+    torch.cuda.empty_cache()
+
+    nll = {}
+    for name, d, shape in (("patch512", PROXY_D, (1, PATCH, PATCH)),
+                           ("ladder", 256, (8, 32, 32))):
+        nll[name], call = _nll_step_ms(dev, _fresh_proxy(dev, d), *shape)
+        if name == "patch512":
+            nll[name]["profile"] = _profile(call, nll[name]["ms"], steps=2)
+        print(f"proxy NLL step {name}: {nll[name]['ms']:.3f} ms, peak "
+              f"{nll[name]['peak_mem_gib']:.2f} GiB (forward FLOP bound "
+              f"{nll[name]['fwd_flop_bound_ms']:.3f} ms)", flush=True)
+        torch.cuda.empty_cache()
+    out = {"synth_ms": {k: statistics.mean(v) for k, v in synth_ms.items()},
+           "synth_ms_runs": synth_ms, "train_step_proxy_bf16_ms": train_ms,
+           "train_step_proxy_split_ms": split, "train_step_proxy_peak_gib": train_peak / 2**30,
+           "nll_step": nll}
+    print(f"proxy synth {out['synth_ms']} ms; bf16 train step with the proxy synth "
+          f"{train_ms:.3f} ms (split {split}, peak {train_peak / 2**30:.2f} GiB)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -807,14 +1267,19 @@ def main() -> int:
     launches, main_err = phase_main_path(dev)
     train_launches, train_run, batch = phase_train_main_path(dev)
     step_check = phase_train_step_check(dev)
+    proxy_checks = phase_proxy_checks(dev)
+    ladder = phase_iso_ladder(dev)
+    pnnp_launches, pnnp_runs, proxy_params = phase_pnnp_paths(dev)
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
-    timings.update(train_main_path=train_run, train_step_check=step_check)
+    timings.update(train_main_path=train_run, train_step_check=step_check,
+                   proxy_checks=proxy_checks, iso_ladder=ladder, **pnnp_runs,
+                   proxy=phase_proxy_timings(dev, batch, proxy_params))
 
     # one row per SSIM route: the main path's (hopper) and the first version;
-    # launches of each path's run (the eval run, the train run's eval legs)
-    # and their sum
-    by_path = {"eval": launches, "train": train_launches}
+    # launches of each path's run (the eval run, the train run's and the
+    # PNNP run's eval legs) and their sum
+    by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches}
     kernels = [dict(
         name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
         replaces="pnnp_tpu/kernels/ssim.py:39",

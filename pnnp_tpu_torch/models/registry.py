@@ -1,6 +1,7 @@
 """Model registry: YAML ``arch.name`` -> ``nn.Module`` (counterpart of
 ``pnnp_tpu/models/registry.py``). Only ``UNetSeeInDark`` is ported; the
-rest of the family waits for ROADMAP 1.13."""
+rest of the family waits for ROADMAP 1.13. :func:`build_proxy` builds the
+noise proxy of a runfile's ``arch_proxy`` block."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from pnnp_tpu_torch.models.proxy import PixelWiseISOProxy
 from pnnp_tpu_torch.models.unet import UNetSeeInDark
 
 _REGISTRY = {"UNetSeeInDark": UNetSeeInDark}
@@ -44,5 +46,30 @@ def build_model(arch: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
         nf=int(arch.get("nf", 32)),
         res=bool(arch.get("res", False)),
         dtype=dtype,
+        generator=generator,
+    )
+
+
+def build_proxy(arch_proxy: Mapping[str, Any], wp: float = 16383.0, bl: float = 512.0,
+                generator: Optional[torch.Generator] = None) -> PixelWiseISOProxy:
+    """The ``pw_iso_2stage`` proxy of an ``arch_proxy`` block, with the keys
+    and defaults the JAX Trainer reads (pnnp_tpu/trainer.py:275-285): ISO2K,
+    nf, nb, d, mode, lookup, smooth_s0; ``wp``/``bl`` come from the ``dst``
+    block. ``generator`` seeds flax's Dense init law. Built on the CPU."""
+    name = str(arch_proxy.get("name", ""))
+    if "NoiseFlow" in name or "noise_flow" in name:
+        raise NotImplementedError(
+            f"arch_proxy '{name}': NoiseFlow is not ported yet (ROADMAP 1.12)")
+    if "pw_iso" not in name:
+        raise KeyError(f"unknown arch_proxy '{name}'; known: pw_iso_2stage")
+    return PixelWiseISOProxy(
+        iso2k=tuple(arch_proxy.get("ISO2K", (0.0009546, -0.00193))),
+        nf=int(arch_proxy.get("nf", 16)),
+        nb=int(arch_proxy.get("nb", 2)),
+        d=int(arch_proxy.get("d", 1024)),
+        mode=arch_proxy.get("mode", "2stage+iso"),
+        wp=float(wp), bl=float(bl),
+        lookup=arch_proxy.get("lookup", "dot"),
+        smooth_s0=float(arch_proxy.get("smooth_s0", 0.3)),
         generator=generator,
     )

@@ -2,7 +2,8 @@
 
 Train half (:33-351): the synth stages that turn a host batch into a noisy /
 clean pair on the device (``make_raw_synth``, the physics synth of the
-Raw_Dataset family; ``identity_synth``, for real pairs), and the train step:
+Raw_Dataset family; ``make_proxy_synth``, the learned proxy's, for the
+Proxy_Dataset family; ``identity_synth``, for real pairs), and the train step:
 synth -> clip -> forward + L1 loss -> backward -> Adam scaled by
 ``lr(epoch)``. Images are NCHW tensors on the device; every random draw
 comes from the ``torch.Generator`` passed to the step.
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 
 from pnnp_tpu_torch.kernels.ssim import ssim_flat
 from pnnp_tpu_torch.ops.correct import illuminance_correct
-from pnnp_tpu_torch.physics.calibration import HALF_CLIP
+from pnnp_tpu_torch.physics.calibration import HALF_CLIP, LEGAL_ISO
 from pnnp_tpu_torch.physics.noise import generate_noisy
 from pnnp_tpu_torch.physics.sampling import sample_params_max
 from pnnp_tpu_torch.train.losses import unet_loss
@@ -94,6 +95,52 @@ def make_raw_synth(camera_type: str, noise_code: str, ori: bool, clip: bool,
     return synth
 
 
+def make_proxy_synth(sample_fn: Callable, ori: bool = False,
+                     ratio_range=(100.0, 300.0), ratio_ladder=None,
+                     iso_from_batch: bool = False):
+    """Noise from a learned proxy: ``sample_fn(generator, clean, iso) ->
+    noise`` (normalized), as ``synth(generator, batch) -> (lr, hr, ratio)``.
+
+    Two reference sampling laws:
+
+    * Sony (trainer_SID.py:463-472), the default: per-example
+      ``ratio ~ U(ratio_range)`` and ONE ISO per batch drawn uniformly from
+      the legal-ISO ladder.
+    * IMX686 (trainer_LRID.py:419-427), with ``ratio_ladder`` and
+      ``iso_from_batch``: ONE ratio per batch drawn uniformly from the
+      ladder (the LRID dgains 1, 2, 4, 8, 16) and the ISO of the batch's own
+      dataset (``batch["iso"][0]``, the proxy's calibration point).
+
+    Draws stay on the generator's device (no host sync); the ISO reaches
+    ``sample_fn`` as a 1-element tensor.
+    """
+
+    def synth(generator, batch):
+        hr = batch["hr"]
+        n = hr.shape[0]
+        dev = generator.device
+        if ratio_ladder is not None:
+            ladder = torch.tensor(ratio_ladder, dtype=torch.float32, device=dev)
+            ridx = torch.randint(len(ladder), (1,), generator=generator, device=dev)
+            ratio = ladder[ridx].expand(n)
+        else:
+            lo, hi = ratio_range
+            ratio = torch.rand(n, generator=generator, device=dev) * (hi - lo) + lo
+        if iso_from_batch:
+            iso = batch["iso"].reshape(-1)[:1].float()
+        else:
+            legal = torch.as_tensor(LEGAL_ISO, device=dev)
+            iso = legal[torch.randint(len(legal), (1,), generator=generator, device=dev)]
+        rb = ratio.reshape(-1, 1, 1, 1)
+        noise = sample_fn(generator, hr / rb, iso)
+        # ori keeps lr at the dark (unamplified) exposure, as generate_noisy's
+        # ori branch: dark signal + dark-scale noise
+        lr = hr + noise * rb if not ori else hr / rb + noise
+        return lr, hr, ratio
+
+    return synth
+
+
 def identity_synth(generator, batch):
     """Real paired data (paired training): no synthesis."""
     hr = batch["hr"]
@@ -122,12 +169,11 @@ class TrainStep:
     """
 
     def __init__(self, lr_schedule: Callable, synth: Callable = identity_synth,
-                 clip_mode=0, bf16: bool = False, clip_norm: Optional[float] = None):
+                 clip_mode=0, bf16: bool = False):
         self.lr_schedule = lr_schedule
         self.synth = synth
         self.clip_mode = clip_mode
         self.bf16 = bf16
-        self.clip_norm = clip_norm
 
     @torch.no_grad()
     def make_pair(self, batch, generator):
@@ -150,7 +196,7 @@ class TrainStep:
 
     def update(self, opt, epoch) -> float:
         lr = float(self.lr_schedule(epoch))
-        apply_scaled_updates(opt, lr, self.clip_norm)
+        apply_scaled_updates(opt, lr)
         return lr
 
     def __call__(self, model, opt, batch, generator, epoch) -> dict:
@@ -164,14 +210,13 @@ class TrainStep:
 
 
 def make_train_step(lr_schedule: Callable, synth: Callable = identity_synth,
-                    clip_mode=0, deep_supervision: bool = False, bf16: bool = False,
-                    clip_norm: Optional[float] = None) -> TrainStep:
+                    clip_mode=0, deep_supervision: bool = False,
+                    bf16: bool = False) -> TrainStep:
     """Build the train step (see :class:`TrainStep`)."""
     if deep_supervision:
         raise NotImplementedError(
             "deep supervision (use_dpsv) training is not ported yet (ROADMAP 1.13)")
-    return TrainStep(lr_schedule, synth, clip_mode=clip_mode, bf16=bf16,
-                     clip_norm=clip_norm)
+    return TrainStep(lr_schedule, synth, clip_mode=clip_mode, bf16=bf16)
 
 
 def pad_split(n: int, mult: int = 16):

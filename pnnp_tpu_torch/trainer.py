@@ -8,7 +8,10 @@ package loads in the other.
 
 Training keeps float32 master parameters and steps through
 :class:`~pnnp_tpu_torch.train.steps.TrainStep`: the on-device synth picked
-from the train dataset (physics ``Raw_Dataset``, or real pairs), then
+from the train dataset (physics ``Raw_Dataset``; the learned
+``pw_iso_2stage`` proxy of ``arch_proxy`` for ``Proxy_Dataset``, the
+paper's PNNP recipe, its weights from ``proxy_checkpoint``; or real
+pairs), then
 forward, L1, backward and Adam scaled by ``lr(epoch)``. UNetSeeInDark
 trains with a bf16 forward under autocast (f32 with ``disable_fast_path:
 true``). ``train`` evaluates every ``plot_freq`` epochs, reloads the best
@@ -21,7 +24,7 @@ CUDA SSIM kernel. In the train modes it serves a bf16 copy of the master
 weights, refreshed at each eval leg.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-the proxy and NoiseFlow synths (1.9, 1.12), the Mix/SFRN/IMX686 synth
+the NoiseFlow synth (1.12), the Mix/SFRN/IMX686 synth
 families (1.11), deep supervision (1.13), ``--int8`` serving (1.15),
 ``rgb_metrics`` (1.14) and :meth:`Trainer.predict` (1.14). With
 ``save_plot`` the input meters are computed, but figure rendering (1.14) is
@@ -41,7 +44,7 @@ import torch
 
 from pnnp_tpu_torch.config import command_of, load_runfile
 from pnnp_tpu_torch.data import DataLoader, build_dataset
-from pnnp_tpu_torch.models import build_model, params_from_jax, params_to_jax
+from pnnp_tpu_torch.models import build_model, build_proxy, params_from_jax, params_to_jax
 from pnnp_tpu_torch.ops import illuminance_correct
 from pnnp_tpu_torch.train import (
     CheckpointManager,
@@ -51,6 +54,7 @@ from pnnp_tpu_torch.train import (
     make_adam,
     make_eval_metrics_step,
     make_eval_step,
+    make_proxy_synth,
     make_raw_synth,
     make_train_step,
 )
@@ -137,6 +141,12 @@ class Trainer:
         if self.last_epoch > 0 or self.mode != "train":
             self._try_restore()
 
+        # --- proxy (PNNP), train modes only --------------------------------
+        self.proxy = None
+        arch_proxy = self.args.get("arch_proxy")
+        if arch_proxy and self.training:
+            self._init_proxy(arch_proxy)
+
         # --- train step (before the datasets: unported families raise) ----
         self.dst_train = self.args.get("dst_train")
         self.dst_eval = self.args.get("dst_eval")
@@ -206,6 +216,25 @@ class Trainer:
         optimizer keeps its parameters and its moments."""
         self.model.load_state_dict(params_from_jax(params), strict=True)
 
+    def _init_proxy(self, arch_proxy: dict):
+        """The noise proxy of ``arch_proxy``: the ``pw_iso_2stage`` law at
+        flax's init from seed 0 (as the JAX Trainer's ``key(0)``), or the
+        weights of ``proxy_checkpoint`` when that file exists (a pickle of
+        either package). f32 on the device, frozen: the denoiser's step
+        does not train it. Other names leave no proxy, as in JAX."""
+        name = str(arch_proxy.get("name", ""))
+        if not any(k in name for k in ("pw_iso", "NoiseFlow", "noise_flow")):
+            return
+        self.proxy = build_proxy(arch_proxy, wp=float(self.dst.get("wp", 16383)),
+                                 bl=float(self.dst.get("bl", 512)),
+                                 generator=torch.Generator().manual_seed(0))
+        proxy_ckpt = self.args.get("proxy_checkpoint")
+        if proxy_ckpt and os.path.exists(proxy_ckpt):
+            self.proxy.load_state_dict(params_from_jax(load_any(proxy_ckpt)["params"]),
+                                       strict=True)
+            log(f"Loaded proxy checkpoint {proxy_ckpt}")
+        self.proxy.to(self.device).eval().requires_grad_(False)
+
     def _make_synth(self):
         """The on-device synthesis stage, by train dataset (the reference
         preprocess dispatch, trainer_SID.py:428-472). Families not ported yet
@@ -215,8 +244,26 @@ class Trainer:
             return identity_synth
         name = self.dst_train["dataset"]
         if name in ("Proxy_Dataset", "IMX686_Proxy_Dataset"):
-            raise NotImplementedError(
-                f"{name}: the learned proxy synth is not ported yet (ROADMAP 1.9)")
+            if self.proxy is None:
+                raise RuntimeError(
+                    f"{name} requires a proxy network: set arch_proxy in the "
+                    "runfile (and make its checkpoint loadable)")
+            proxy = self.proxy
+
+            def sample_fn(generator, clean, iso):
+                # f32, whatever autocast the caller runs under
+                with torch.autocast(clean.device.type, enabled=False):
+                    return proxy.sample(clean.float(), iso, generator)
+
+            ori = bool(self.dst.get("ori", False))
+            if name.startswith("IMX686"):
+                # LRID law (trainer_LRID.py:419-427): one dgain per batch from
+                # the ladder, the ISO of the batch's own dataset
+                return make_proxy_synth(sample_fn, ori=ori, ratio_ladder=(1, 2, 4, 8, 16),
+                                        iso_from_batch=True)
+            # Sony law (trainer_SID.py:463-472): per-example ratio ~ U(100, 300),
+            # one legal-ladder ISO per batch
+            return make_proxy_synth(sample_fn, ori=ori, ratio_range=(100.0, 300.0))
         if name in ("NF_Syn_Dataset", "IMX686_NF_Syn_Dataset"):
             raise NotImplementedError(
                 f"{name}: the NoiseFlow synth is not ported yet (ROADMAP 1.12)")
@@ -272,9 +319,9 @@ class Trainer:
 
     def _train_batch(self, batch: dict) -> dict:
         """Host batch -> the tensors the synth reads, on the device, images
-        NCHW: the physics synth reads the clean crops only; real pairs need
-        lr, hr and the ratio."""
-        keys = ("lr", "hr", "ratio") if self.synth is identity_synth else ("hr",)
+        NCHW: the synths read the clean crops (and the IMX686 proxy law the
+        batch's ISO); real pairs need lr, hr and the ratio."""
+        keys = ("lr", "hr", "ratio") if self.synth is identity_synth else ("hr", "iso")
         out = {}
         for k in keys:
             if k in batch:

@@ -60,6 +60,7 @@ def test_importing_the_port_loads_no_forbidden_module():
         "before = set(sys.modules)\n"
         "import pnnp_tpu_torch, pnnp_tpu_torch.trainer, pnnp_tpu_torch.kernels.ssim\n"
         "import pnnp_tpu_torch.data.fixtures, pnnp_tpu_torch.kernels.build\n"
+        "import pnnp_tpu_torch.trainer_nf, pnnp_tpu_torch.tools.validate_proxy\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
         "assert 'pnnp_tpu_torch.trainer' in new\n"
@@ -73,12 +74,14 @@ def test_importing_the_port_loads_no_forbidden_module():
 
 
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
-    """No CUDA and no explicit device='cpu': the Trainer and the CLI raise
-    instead of running on the host."""
+    """No CUDA and no explicit device='cpu': the Trainer, the NF trainer and
+    the CLIs raise instead of running on the host."""
     import torch
 
     from pnnp_tpu_torch.data.fixtures import make_sid_fixture, make_sid_runfile
     from pnnp_tpu_torch.trainer import Trainer, main
+    from pnnp_tpu_torch.trainer_nf import NFTrainer
+    from pnnp_tpu_torch.trainer_nf import main as nf_main
     from pnnp_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -91,6 +94,15 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         Trainer(path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["-f", path, "--mode", "eval", "--nofig"])
+    nf_run = dict(make_sid_runfile(tmp_path), arch={"name": "pw_iso_2stage", "d": 16})
+    nf_run["dst_train"]["dataset"] = "SID_Dataset"
+    nf_path = str(tmp_path / "nf.yml")
+    with open(nf_path, "w") as f:
+        yaml.safe_dump(nf_run, f)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NFTrainer(nf_path, model_kind="proxy")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nf_main(["-f", nf_path, "--kind", "proxy"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:1")
     assert resolve_device("cpu") == torch.device("cpu")
