@@ -51,7 +51,27 @@ and no result line):
    ``evaltest``) driven by that checkpoint: the proxy drew the noise of
    every step, finite losses, moved params, 12 SSIM launches, all
    ``hopper``;
-8. timings with CUDA events after warm-up: the fused eval step in bf16 and
+8. the IMX686 camera and the paper's baselines (``phase_baselines``):
+   ``runfiles/IMX686/PNNP.yml --mode train`` on a 3472x4624 LRID fixture
+   (59 info entries on 2 frames, an ISO-6400 bias library and its -hot
+   twin; ``IMX686_Proxy_Dataset``, the proxy at its seed-0 init, d=1024;
+   nf=32, 12 crops of 512^2; the runfile's ``small`` quarter, one epoch at
+   its lr held fixed): the proxy drew every step's noise at one dgain of
+   {1, 2, 4, 8, 16} per batch and ISO 6400, no eval was illuminance-
+   corrected, every SSIM launch ``hopper`` at ``[1736, 9248]``, one per
+   frame (a fast-eval leg, then ``evaltest``); ``IMX686/PMN.yml --mode
+   trainonly`` (bias pastes, HighBitRecovery on the card touching only the
+   pasted crops, and against the CPU on one field, SNA every step); then
+   ``SonyA7S2/PMN.yml --mode train`` (``Mix_Dataset``, host HBR on the
+   pastes, an eval leg per epoch over the SID 250 split, ``evaltest``) and
+   ``SonyA7S2/SFRN.yml --mode trainonly`` on a 2848x4256 SID fixture with an
+   ISO-1600 bias library: finite losses, moved params; then their timings
+   (``phase_baseline_timings``): the bf16 step with the Mix synth at Sony
+   8x512^2 and IMX686 12x512^2 and with the SFRN synth at 8x512^2, split;
+   the bf16 eval step at the IMX686 frame with its SSIM share; the loaders
+   at 4 workers, alone and feeding the step, for ``IMX686_Dataset``,
+   ``IMX686_Mix_Dataset``, ``Mix_Dataset`` and ``SFRN_Dataset``;
+9. timings with CUDA events after warm-up: the fused eval step in bf16 and
    in f32 at the full frame (median per call, plus a torch.profiler
    breakdown by kernel and the device's idle share), each kernel route
    (mean over back-to-back launches, the two routes in turns) at the Sony
@@ -69,7 +89,8 @@ and no result line):
 Output: one ``timings`` JSON line, one ``kernels`` JSON line (a row per
 SSIM route: ``ssim`` is the ``hopper`` route of the main path,
 ``ssim_generic`` the first CUDA version; ``launches`` sums the eval, the
-train and the PNNP runs, ``launches_by_path`` keeps each), the ``nvidia-smi`` name/power-limit line, and last
+train, the PNNP and the four baseline runs, ``launches_by_path`` keeps
+each), the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
 
@@ -587,14 +608,15 @@ def phase_train_main_path(dev):
     return launches, result, batch
 
 
-class _Repeat:
-    """The train set ``k`` times over: one long epoch for the loader loops."""
+class _Cycle:
+    """``n`` items cycling over a data set: one long epoch for the loader
+    loops."""
 
-    def __init__(self, ds, k):
-        self.ds, self.k = ds, k
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
 
     def __len__(self):
-        return self.k * len(self.ds)
+        return self.n
 
     def __getitem__(self, i):
         return self.ds[i % len(self.ds)]
@@ -603,16 +625,19 @@ class _Repeat:
         self.ds.reseed_worker(*args)
 
 
-def _loader_pace(trainer, reps=8, warmup=4):
-    """The trainer's DataLoader at its runfile's worker count over ``reps``
-    passes of the train set in one epoch: host ms between batches when
-    nothing consumes them, and wall ms per step when they feed the trainer's
-    own step as ``train()`` does (to the device, the step, one sync). Both
-    after ``warmup`` batches, whose prefetch the workers fill at once."""
+def _loader_pace(trainer, n=None, dataset=None, warmup=4):
+    """The trainer's DataLoader at its runfile's worker count over ``n``
+    items (default: 8 passes of the train set) of ``dataset`` (default: the
+    train set) in one epoch: host ms between batches when nothing consumes
+    them, and wall ms per step when they feed the trainer's own step as
+    ``train()`` does (to the device, the step, one sync). Both after
+    ``warmup`` batches, whose prefetch the workers fill at once."""
     from pnnp_tpu_torch.data import DataLoader
 
     workers = int(trainer.args.get("num_workers", 2))
     gen = torch.Generator(device=trainer.device).manual_seed(0)
+    dataset = dataset or trainer.dataset_train
+    n = n or 8 * len(dataset)
 
     def step(host):
         m = trainer.train_step(trainer.model, trainer.opt, trainer._train_batch(host), gen, 1)
@@ -620,7 +645,7 @@ def _loader_pace(trainer, reps=8, warmup=4):
 
     out = {"workers": workers}
     for name, consume in (("alone", lambda host: None), ("feeding_step", step)):
-        loader = DataLoader(_Repeat(trainer.dataset_train, reps), batch_size=1,
+        loader = DataLoader(_Cycle(dataset, n), batch_size=1,
                             num_workers=workers, seed=trainer.seed)
         stamps = []
         for host in loader:
@@ -629,7 +654,7 @@ def _loader_pace(trainer, reps=8, warmup=4):
         gaps = [1e3 * (b - a) for a, b in zip(stamps[warmup:], stamps[warmup + 1:])]
         out[name] = {"median_ms": statistics.median(gaps), "mean_ms": statistics.mean(gaps),
                      "n": len(gaps)}
-    print(f"host loader, {workers} workers: {out}", flush=True)
+    print(f"host loader, {type(dataset).__name__}, {workers} workers: {out}", flush=True)
     return out
 
 
@@ -1246,6 +1271,433 @@ def phase_proxy_timings(dev, batch, proxy_params):
     return out
 
 
+# ------------------------------------------------ IMX686 and the baselines
+LRID_H, LRID_W = 3472, 4624  # IMX686 full frame, packed [1736, 2312, 4]
+LRID_CROPS = 12  # the IMX686 runfiles' crop_per_image
+LRID_ENTRIES, LRID_FRAMES = 59, 2  # info entries (split tables name ids <= 58), frames on disk
+LRID_DGAINS = (1.0, 2.0, 4.0, 8.0, 16.0)
+BASELINE_EPOCHS = 1  # the IMX686 recipes: one epoch of their 'small' quarter
+
+
+def _recipe(rel):
+    from pnnp_tpu_torch.config import load_runfile
+
+    return load_runfile(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                     "runfiles", rel + ".yml"))
+
+
+def _recipe_runfile(rel, root, fixture, *, epochs, extra_command="", **dst_kw):
+    """A runfile of ``runfiles/<rel>.yml`` at its full width on a fixture:
+    its datasets, commands, noise code, arch (nf=32), arch_proxy (d=1024),
+    crops and batch size kept; paths pointed at the fixture (no dark-shading
+    resources: ``ds_dir`` unset), ``epochs`` epochs at the recipe's lr held
+    fixed, an eval leg every epoch, and ``extra_command`` appended to the
+    train set's command."""
+    rec = _recipe(rel)
+    paths = dict(root_dir=fixture, infos_dir=os.path.join(fixture, "infos"),
+                 bias_dir=os.path.join(fixture, "bias"), ds_dir=None, **dst_kw)
+    run = {k: (dict(rec[k], **paths) if isinstance(rec.get(k), dict) else rec.get(k))
+           for k in ("dst", "dst_train", "dst_eval", "dst_test")}
+    if extra_command:
+        run["dst_train"]["command"] += ", " + extra_command
+    run.update({
+        "mode": "train", "model_name": rec["model_name"], "num_workers": rec["num_workers"],
+        "brightness_correct": rec["brightness_correct"],
+        "checkpoint": os.path.join(root, "saved_model"),
+        "fast_ckpt": os.path.join(root, "checkpoints"),
+        "result_dir": os.path.join(root, "images"),
+        "arch": dict(rec["arch"]),
+        "hyper": dict(rec["hyper"], stop_epoch=epochs, plot_freq=1, lr_scheduler="fixed"),
+    })
+    if rec.get("arch_proxy"):
+        run["arch_proxy"] = dict(rec["arch_proxy"])
+    return run
+
+
+class _Observed:
+    """What a run did, read by wrapping the port's own functions: the loss of
+    every step, the frames of every eval leg, the trainer's log lines, the
+    shape of every SSIM call, the illuminance corrections, the SNA calls,
+    and per batch the synth's ratio and ISO and whether it pasted a bias
+    frame."""
+
+    def __init__(self):
+        self.losses, self.legs, self.lines, self.ssim_shapes = [], [], [], []
+        self.corrections = self.sna_calls = 0
+        self.batches = []  # (unique ratios, unique ISOs, pasted crops) per synth call
+        self.hbr_devices, self.hbr_map = set(), None
+        self.keep = None  # one device batch with a paste, for checks after the run
+
+    def __enter__(self):
+        import pnnp_tpu_torch.train.steps as S
+        import pnnp_tpu_torch.trainer as T
+        from pnnp_tpu_torch.train import TrainStep
+
+        self._saved = [(TrainStep, "__call__"), (T.Trainer, "eval"), (T, "log"),
+                       (S, "ssim_flat"), (S, "illuminance_correct"), (S, "sna"),
+                       (T, "make_proxy_synth"), (T, "make_mix_synth")]
+        self._orig = [getattr(o, a) for o, a in self._saved]
+        call, evaluate, log, ssim, correct, sna, proxy_f, mix_f = self._orig
+        obs = self
+
+        def counted(step, model, opt, batch, gen, epoch):
+            m = call(step, model, opt, batch, gen, epoch)
+            obs.losses.append(float(m["loss"]))
+            return m
+
+        def eval_leg(trainer, epoch=-1):
+            evaluate(trainer, epoch)
+            obs.legs.append((trainer.eval_psnr.count, epoch))
+
+        def logged(string, *a, **k):
+            obs.lines.append(str(string))
+            return log(string, *a, **k)
+
+        def ssim_rec(x, y, *a, **k):
+            obs.ssim_shapes.append(tuple(x.shape))
+            return ssim(x, y, *a, **k)
+
+        def correct_rec(*a, **k):
+            obs.corrections += 1
+            return correct(*a, **k)
+
+        def sna_rec(*a, **k):
+            obs.sna_calls += 1
+            return sna(*a, **k)
+
+        def watch(synth):
+            def run(generator, batch):
+                lr, hr, ratio = synth(generator, batch)
+                iso = batch.get("iso")
+                black = batch.get("black_lr")
+                pasted = 0 if black is None else int((black > 0).sum())
+                obs.batches.append((sorted(set(ratio.tolist())),
+                                    None if iso is None else sorted(set(iso.tolist())),
+                                    pasted))
+                if pasted and obs.keep is None:
+                    obs.keep = {k: v.clone() for k, v in batch.items()}
+                return lr, hr, ratio
+            return run
+
+        def proxy_rec(*a, **k):
+            return watch(proxy_f(*a, **k))
+
+        def mix_rec(*a, hbr_map=None, **k):
+            if hbr_map is not None:
+                inner = hbr_map
+
+                def hbr_map(g, x):
+                    obs.hbr_devices.add(x.device.type)
+                    return inner(g, x)
+                obs.hbr_map = hbr_map
+            return watch(mix_f(*a, hbr_map=hbr_map, **k))
+
+        for (o, a), f in zip(self._saved, (counted, eval_leg, logged, ssim_rec, correct_rec,
+                                           sna_rec, proxy_rec, mix_rec)):
+            setattr(o, a, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (o, a), f in zip(self._saved, self._orig):
+            setattr(o, a, f)
+
+
+def _run_recipe(run, root, mode):
+    """``trainer.main`` of a recipe runfile, observed; returns the trainer,
+    what it did, its wall time and the SSIM launches of the run."""
+    import yaml
+
+    import pnnp_tpu_torch.kernels.ssim as K
+    import pnnp_tpu_torch.trainer as T
+
+    yml = os.path.join(root, f"{run['model_name']}.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(run, f)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        with _Observed() as obs:
+            torch.cuda.synchronize()
+            K.launches = 0
+            K.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+            t0 = time.perf_counter()
+            trainer = T.main(["-f", yml, "--mode", mode, "--nofig"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"ssim": K.launches, "by_route": dict(K.launches_by_route)}
+    finally:
+        os.chdir(cwd)
+    text = "\n".join(obs.lines)
+    _check("aborted by RuntimeError" not in text, f"{run['model_name']}: an epoch was aborted")
+    steps = len(trainer.dataset_train) * int(run["hyper"]["stop_epoch"])
+    _check(len(obs.losses) == steps and all(math.isfinite(x) for x in obs.losses),
+           f"{run['model_name']}: {len(obs.losses)} of {steps} steps, losses {obs.losses}")
+    frames = sum(n for n, _ in obs.legs)
+    _check(launches["ssim"] == frames == launches["by_route"]["hopper"],
+           f"{run['model_name']}: SSIM launches {launches} for {frames} eval frames")
+    return trainer, obs, wall, launches
+
+
+def _params_moved(trainer, run, lr):
+    from pnnp_tpu_torch.models import build_model, params_to_jax
+    from pnnp_tpu_torch.train import load_any
+
+    init = params_to_jax(build_model(run["arch"], dtype=torch.float32,
+                                     generator=torch.Generator().manual_seed(trainer.seed))
+                         .state_dict())
+    last = load_any(os.path.join(run["fast_ckpt"], f"{run['model_name']}_last_model.ckpt"))
+    moved = max(float(np.abs(last["params"][n][k] - init[n][k]).max())
+                for n in init for k in init[n])
+    _check(moved > 0.1 * lr, f"{run['model_name']}: params did not move ({moved})")
+    return moved
+
+
+def _summary(run, obs, wall, launches, moved):
+    return {"wall_s": wall, "steps": len(obs.losses), "losses": obs.losses,
+            "eval_legs": obs.legs, "launches": launches, "params_moved": moved,
+            "synth_batches": len(obs.batches),
+            "pasted_batches": sum(1 for *_, p in obs.batches if p),
+            "epoch_lines": [e for e in obs.lines if ": loss ok," in e]}
+
+
+def _hbr_card_check(dev, hbr, shape):
+    """The IMX686 HBR map on the card against the CPU on one uniform field
+    and one quantized bias batch at the recipe's shape: within 1e-6
+    (normalized)."""
+    import pnnp_tpu_torch.physics.hbr as HB
+
+    span = 1023.0 - 64.0
+    g = torch.Generator().manual_seed(0)
+    sig = float(hbr.lut[6400]["scale"])
+    data = (torch.randn(shape, generator=g) * sig).round() / span
+    field = torch.rand(shape, generator=g)
+    draw = HB._uniform
+    try:
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            HB._uniform = lambda gen, sh, device: field.to(device)
+            outs.append(hbr.map(torch.Generator(device=d), data.to(d), iso=6400).cpu())
+    finally:
+        HB._uniform = draw
+    err = float((outs[0] - outs[1]).abs().max())
+    _check(err <= 1e-6, f"HBR card vs cpu: {err}")
+    return err
+
+
+def phase_baselines(dev, base):
+    """The IMX686 camera and the paper's baselines at full width:
+    ``runfiles/IMX686/PNNP.yml --mode train`` and ``IMX686/PMN.yml --mode
+    trainonly`` on a 3472x4624 LRID fixture (12 crops of 512^2, their
+    ``small`` quarter, one epoch at the recipe's lr), then
+    ``SonyA7S2/PMN.yml --mode train`` and ``SonyA7S2/SFRN.yml --mode
+    trainonly`` on a 2848x4256 SID fixture with an ISO-1600 bias library,
+    all under the directory ``base``. Returns (SSIM launches by run, what was
+    checked, device batches and trainers for the timings)."""
+    from pnnp_tpu_torch.data.fixtures import make_lrid_fixture, make_sid_fixture, place_eval_split
+    from pnnp_tpu_torch.models import PixelWiseISOProxy
+
+    out, launches, keep = {}, {}, {}
+    lrid, sid = os.path.join(base, "lrid"), os.path.join(base, "sid")
+    t0 = time.perf_counter()
+    make_lrid_fixture(lrid, n_scenes=LRID_ENTRIES, H=LRID_H, W=LRID_W, n_frames=LRID_FRAMES,
+                      shorts_per_dgain=1, n_bias=2)
+    infos = make_sid_fixture(sid, n_scenes=TRAIN_SCENES, H=MOSAIC_H, W=MOSAIC_W,
+                             bias_isos=(1600,), n_bias=2)
+    place_eval_split(sid, infos, 250)
+    print(f"baselines: fixtures in {time.perf_counter() - t0:.1f} s (LRID {LRID_ENTRIES} "
+          f"entries on {LRID_FRAMES} frames, {LRID_H}x{LRID_W}; SID {TRAIN_SCENES} scenes "
+          f"+ ISO-1600 bias)", flush=True)
+
+    # --- IMX686 PNNP: the proxy at its seed-0 init (no proxy_checkpoint) --
+    root = tempfile.mkdtemp(prefix="pnnp_imx686_pnnp_", dir=lrid)
+    run = _recipe_runfile("IMX686/PNNP", root, lrid, epochs=BASELINE_EPOCHS,
+                          extra_command="small")
+    samples, sample = [], PixelWiseISOProxy.sample
+
+    def sampled(self, clean, iso, generator):
+        samples.append((tuple(clean.shape), clean.device.type))
+        return sample(self, clean, iso, generator)
+
+    PixelWiseISOProxy.sample = sampled
+    try:
+        tr, obs, wall, launches["imx686_pnnp"] = _run_recipe(run, root, "train")
+    finally:
+        PixelWiseISOProxy.sample = sample
+    n = len(obs.losses)
+    _check(samples == [((LRID_CROPS, 4, PATCH, PATCH), dev.type)] * n,
+           f"IMX686 PNNP proxy samples {samples[:3]}...: not the synth of every step")
+    _check(len(obs.batches) == n and all(len(r) == 1 and r[0] in LRID_DGAINS and i == [6400.0]
+                                         for r, i, _ in obs.batches),
+           f"IMX686 PNNP: dgain / ISO per batch {obs.batches}")
+    _check(tr.proxy.d == PROXY_D and int(tr.arch["nf"]) == 32, "IMX686 PNNP not at full width")
+    _check(obs.corrections == 0, f"{obs.corrections} IMX686 evals were illuminance-corrected")
+    _check(set(obs.ssim_shapes) == {(IMX686[0], IMX686[1] * 4)},
+           f"IMX686 SSIM shapes {set(obs.ssim_shapes)}")
+    want = [(3, 1)] + [(9, -1)] * 10  # fast-eval scenes; 9 eval scenes x 5 dgains, twice
+    _check(obs.legs == want, f"IMX686 PNNP eval legs {obs.legs}, want {want}")
+    moved = _params_moved(tr, run, run["hyper"]["learning_rate"])
+    out["imx686_pnnp"] = dict(_summary(run, obs, wall, launches["imx686_pnnp"], moved),
+                              dgains=sorted({r[0] for r, _, _ in obs.batches}),
+                              corrections=obs.corrections, ssim_shape=list(obs.ssim_shapes[0]))
+    print(f"IMX686 PNNP: --mode train, {n} steps + {sum(k for k, _ in obs.legs)} eval frames "
+          f"in {wall:.2f} s; dgains {out['imx686_pnnp']['dgains']}; launches "
+          f"{launches['imx686_pnnp']}; params moved by up to {moved}", flush=True)
+    del tr
+    torch.cuda.empty_cache()
+
+    # --- IMX686 PMN: bias pastes, HBR on the card, SNA ---------------------
+    root = tempfile.mkdtemp(prefix="pnnp_imx686_pmn_", dir=lrid)
+    run = _recipe_runfile("IMX686/PMN", root, lrid, epochs=BASELINE_EPOCHS,
+                          extra_command="small")
+    tr, obs, wall, launches["imx686_pmn"] = _run_recipe(run, root, "trainonly")
+    n = len(obs.losses)
+    pasted = sum(1 for *_, p in obs.batches if p)
+    _check(pasted >= 1, f"IMX686 PMN: no batch pasted a bias frame in {n}")
+    _check(obs.sna_calls == n, f"IMX686 PMN: SNA ran {obs.sna_calls} times in {n} steps")
+    _check(obs.hbr_devices == {dev.type}, f"IMX686 PMN: HBR ran on {obs.hbr_devices}")
+    # HBR touches the pasted crops only: without WB deltas ('noaug') SNA adds
+    # nothing to the paired crops, so they leave the synth bit for bit, while
+    # the pasted ones differ from the same synth without HBR
+    from pnnp_tpu_torch.train.steps import make_mix_synth
+
+    b = obs.keep
+    mask = b["black_lr"] > 0
+    outs = [make_mix_synth("IMX686", "noaug", ori=False, hbr_map=m, host_amplified=True)(
+        torch.Generator(device=dev).manual_seed(0), b)[0] for m in (obs.hbr_map, None)]
+    _check(torch.equal(outs[0][~mask], b["lr"][~mask]),
+           "IMX686 PMN: the HBR synth changed a paired crop")
+    _check(bool((outs[0][mask] != outs[1][mask]).any()), "IMX686 PMN: HBR left the pastes alone")
+    from pnnp_tpu_torch.physics.hbr import HighBitRecovery
+
+    hbr = HighBitRecovery(camera_type="IMX686", noise_code="p")
+    hbr.get_lut([6400])
+    hbr_err = _hbr_card_check(dev, hbr, (LRID_CROPS, 4, PATCH, PATCH))
+    moved = _params_moved(tr, run, run["hyper"]["learning_rate"])
+    out["imx686_pmn"] = dict(_summary(run, obs, wall, launches["imx686_pmn"], moved),
+                             sna_calls=obs.sna_calls, pasted_crops_first=int(mask.sum()),
+                             hbr_card_vs_cpu=hbr_err)
+    keep["imx686_mix"] = (tr, tr._train_batch(_collate_one(tr.dataset_train, 0)))
+    print(f"IMX686 PMN: --mode trainonly, {n} steps in {wall:.2f} s, {pasted} batches "
+          f"pasted; HBR card vs cpu {hbr_err:.2e}; params moved by up to {moved}", flush=True)
+
+    # --- SonyA7S2 PMN (host HBR) and SFRN ----------------------------------
+    for rel, mode in (("SonyA7S2/PMN", "train"), ("SonyA7S2/SFRN", "trainonly")):
+        root = tempfile.mkdtemp(prefix="pnnp_sony_", dir=sid)
+        run = _recipe_runfile(rel, root, sid, epochs=TRAIN_EPOCHS, H=MOSAIC_H, W=MOSAIC_W)
+        if mode == "train":  # the eval leg over the SID 250 split (no ELD fixture)
+            run["dst_eval"] = dict(run["dst_eval"], dataset="SID_Dataset", dstname="SID",
+                                   ratio_list=[250], command="")
+        key = rel.split("/")[1].lower()
+        hosted = _HostHBRCount()
+        with hosted:
+            tr, obs, wall, launches[f"sony_{key}"] = _run_recipe(run, root, mode)
+        moved = _params_moved(tr, run, run["hyper"]["learning_rate"])
+        out[f"sony_{key}"] = dict(_summary(run, obs, wall, launches[f"sony_{key}"], moved),
+                                  host_hbr_items=hosted.n, synth_keys=list(tr.synth_keys))
+        if key == "sfrn":
+            _check(hosted.n == len(obs.losses) and tuple(tr.synth_keys) == ("hr", "lr"),
+                   f"SFRN: host HBR on {hosted.n} items, synth keys {tr.synth_keys}")
+        else:
+            _check(obs.sna_calls == len(obs.losses) and len(obs.legs) == TRAIN_EPOCHS + 4,
+                   f"Sony PMN: SNA {obs.sna_calls}, legs {obs.legs}")
+        keep[f"sony_{key}"] = (tr, tr._train_batch(_collate_one(tr.dataset_train, 0)))
+        print(f"Sony {key.upper()}: --mode {mode}, {len(obs.losses)} steps in {wall:.2f} s; "
+              f"host HBR on {hosted.n} items; legs {obs.legs}; launches "
+              f"{launches[f'sony_{key}']}; params moved by up to {moved}", flush=True)
+    return launches, out, keep
+
+
+class _HostHBRCount:
+    """Counts the SonyA7S2 datasets' host HBR calls (MixDataset._host_hbr)."""
+
+    def __enter__(self):
+        from pnnp_tpu_torch.data.datasets import MixDataset
+
+        self.n, self._f = 0, MixDataset._host_hbr
+
+        def counted(ds, crops, iso):
+            self.n += 1
+            return self._f(ds, crops, iso)
+        MixDataset._host_hbr = counted
+        return self
+
+    def __exit__(self, *exc):
+        from pnnp_tpu_torch.data.datasets import MixDataset
+
+        MixDataset._host_hbr = self._f
+
+
+def _collate_one(ds, i):
+    from pnnp_tpu_torch.data import collate
+
+    return collate([ds[i]])
+
+
+def phase_baseline_timings(dev, keep):
+    """The bf16 train step with each new synth on its recipe's own batch
+    (Sony Mix 8x512^2, IMX686 Mix 12x512^2, SFRN 8x512^2), split; the bf16
+    eval step at the IMX686 frame with the SSIM kernel's share; and the
+    host loader at the runfiles' 4 workers, alone and feeding the step, for
+    IMX686_Dataset / IMX686_Mix_Dataset and Mix_Dataset / SFRN_Dataset."""
+    from pnnp_tpu_torch.data.phone import IMX686Dataset
+    from pnnp_tpu_torch.models import UNetSeeInDark
+    from pnnp_tpu_torch.train import make_adam, make_train_step
+    from pnnp_tpu_torch.train.steps import make_eval_metrics_step
+
+    steps = {}
+    for name, key in (("mix_sony", "sony_pmn"), ("mix_imx686", "imx686_mix"),
+                      ("sfrn_sony", "sony_sfrn")):
+        tr, batch = keep[key]
+        net = UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(0)).to(dev)
+        opt = make_adam(net.parameters())
+        step = make_train_step(lambda e: 1e-4, tr.synth, clip_mode=tr.dst.get("clip", 0),
+                               bf16=True)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        call = lambda: step(net, opt, batch, gen, 1)
+        ms = _time_ms(call, warmup=3, iters=10)
+        n, _, h, w = batch["hr"].shape
+        flops = 3 * _unet_flops_per_pixel(32) * n * h * w
+        steps[name] = {"batch": [n, 4, h, w], "ms": ms, "split_ms": _split_ms(step, net, opt,
+                                                                              batch, gen),
+                       "bound_ms": flops / BF16_FLOP_PER_S * 1e3}
+        print(f"train step bf16, {name} synth, {[n, 4, h, w]}: {ms:.3f} ms "
+              f"(split {steps[name]['split_ms']})", flush=True)
+        del net, opt, step, call
+        torch.cuda.empty_cache()
+
+    # the eval step at the IMX686 frame, bf16, and its SSIM share
+    h, w = IMX686[0], IMX686[1]
+    rng = np.random.default_rng(3)
+    lr = torch.from_numpy(rng.uniform(0, 0.4, (1, h, w * 4)).astype(np.float32)).to(dev)
+    hr = torch.from_numpy(rng.uniform(0, 1, (1, h, w * 4)).astype(np.float32)).to(dev)
+    net = UNetSeeInDark(nf=32, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    fused = make_eval_metrics_step(net)
+    call = lambda: fused(lr, hr, 1.0, correct=False)
+    eval_ms = _time_ms(call, warmup=3, iters=10)
+    prof = _profile(call, eval_ms)
+    ssim_ms = prof["by_class_ms"].get("ssim kernel", 0.0)
+    eval_imx = {"frame": [1, h, w, 4], "ms": eval_ms, "mpix_s": h * w * 4 / 1e6 / (eval_ms / 1e3),
+                "ssim_ms": ssim_ms, "ssim_share": ssim_ms / eval_ms, "profile": prof}
+    print(f"eval step bf16 at the IMX686 frame: {eval_ms:.3f} ms, SSIM {ssim_ms:.4f} ms",
+          flush=True)
+    del net, fused, call
+    torch.cuda.empty_cache()
+
+    # host loaders: the IMX686 paired set beside its Mix set (12 crops of a
+    # 3472x4624 frame), and the Sony Mix / SFRN sets with host HBR
+    tr_imx = keep["imx686_mix"][0]
+    paired = IMX686Dataset(dict(tr_imx.dst_train, dataset="IMX686_Dataset"), seed=tr_imx.seed)
+    loaders = {
+        "IMX686_Dataset": _loader_pace(tr_imx, n=36, dataset=paired),
+        "IMX686_Mix_Dataset": _loader_pace(tr_imx, n=36),
+        "Mix_Dataset": _loader_pace(keep["sony_pmn"][0], n=32),
+        "SFRN_Dataset": _loader_pace(keep["sony_sfrn"][0], n=32),
+    }
+    return {"train_step_bf16": steps, "eval_step_imx686_bf16": eval_imx,
+            "loader_ms_per_batch": loaders}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1270,16 +1722,23 @@ def main() -> int:
     proxy_checks = phase_proxy_checks(dev)
     ladder = phase_iso_ladder(dev)
     pnnp_launches, pnnp_runs, proxy_params = phase_pnnp_paths(dev)
+    with tempfile.TemporaryDirectory(prefix="pnnp_baselines_") as base:
+        base_launches, base_runs, keep = phase_baselines(dev, base)
+        base_timings = phase_baseline_timings(dev, keep)
+        del keep
+    torch.cuda.empty_cache()
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
     timings.update(train_main_path=train_run, train_step_check=step_check,
                    proxy_checks=proxy_checks, iso_ladder=ladder, **pnnp_runs,
-                   proxy=phase_proxy_timings(dev, batch, proxy_params))
+                   proxy=phase_proxy_timings(dev, batch, proxy_params),
+                   baselines=dict(base_runs, **base_timings))
 
     # one row per SSIM route: the main path's (hopper) and the first version;
-    # launches of each path's run (the eval run, the train run's and the
-    # PNNP run's eval legs) and their sum
-    by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches}
+    # launches of each path's run (the eval run, the train run's, the PNNP
+    # run's and the baseline runs' eval legs) and their sum
+    by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches,
+               **base_launches}
     kernels = [dict(
         name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
         replaces="pnnp_tpu/kernels/ssim.py:39",

@@ -1,4 +1,4 @@
-from pnnp_tpu_torch.data.io import dataload, pack_raw_np, load_info
+from pnnp_tpu_torch.data.io import dataload, pack_raw_np, load_info, save_info
 from pnnp_tpu_torch.data.crops import CropPlanner
 from pnnp_tpu_torch.data.datasets import (
     BaseRawDataset,
@@ -8,6 +8,9 @@ from pnnp_tpu_torch.data.datasets import (
     NFSynDataset,
     ProxyDataset,
     ELDDataset,
+    MixDataset,
+    PMNNPDataset,
+    SFRNDataset,
     TestDataset,
     MultiDataset,
     DATASET_REGISTRY,

@@ -1,11 +1,14 @@
 """Datasets: index -> NHWC example dicts, host-side (NumPy).
 
-Copy of the SID/ELD part of ``pnnp_tpu/data/datasets.py`` (reference
+Copy of ``pnnp_tpu/data/datasets.py`` (reference
 data_process/{real,syn}_datasets.py): datasets only load/correct/pack/crop
 clean (and, for paired sets, real noisy) frames on the host; noise synthesis
-belongs to the train step. The paired-augmentation and phone datasets
-(Mix/PMNNP/SFRN, IMX686/LRID, Img and the Multi_* mixers) are still to be
-ported (ROADMAP 1.11); :func:`build_dataset` names that item for them.
+belongs to the train step. The one exception is HighBitRecovery of the
+SonyA7S2 bias pastes (``MixDataset``, ``SFRNDataset``), host code by design
+as in JAX: it runs on CPU tensors inside the loader worker. The phone (LRID)
+datasets live in :mod:`pnnp_tpu_torch.data.phone`. ``Img_Dataset`` and the
+``Multi_*`` mixers (``pnnp_tpu/data/extra.py``) are still to be ported
+(ROADMAP 1.11); :func:`build_dataset` names that item for them.
 
 Example dict keys (all NumPy): 'hr' [n,p,p,4], optional 'lr', 'ratio' [n],
 'wb' [4], 'ccm' [3,3], 'iso', 'name'.
@@ -366,6 +369,157 @@ class ELDDataset(BaseRawDataset):
         }
 
 
+class MixDataset(SIDDataset):
+    """PMN-style paired data + black bias frames + HighBitRecovery.
+
+    The host loads either the real short exposure or (1-in-4 with 'HB') a
+    real bias frame of the nearest ISO, HBR-remapped here on the host; the
+    SNA augmentation itself runs on the device
+    (:func:`pnnp_tpu_torch.train.steps.make_mix_synth`). (reference:
+    real_datasets.py:396-503)
+    """
+
+    def __init__(self, args=None, seed: int = 1997):
+        super().__init__(args, seed)
+        self._record_bias_frames()
+        self._init_hbr()
+
+    def _record_bias_frames(self):
+        bias_dir = self.args.get("bias_dir")
+        self.blacks = {}
+        if bias_dir and os.path.isdir(bias_dir):
+            for iso_dir in sorted(os.listdir(bias_dir), key=lambda s: int(s)):
+                full = os.path.join(bias_dir, iso_dir)
+                self.blacks[int(iso_dir)] = [
+                    os.path.join(full, f) for f in sorted(os.listdir(full))
+                ]
+        self.legal_iso = np.array(sorted(self.blacks)) if self.blacks else np.array(
+            ISO_TABLES["SonyA7S2"]["iso"], int
+        )
+
+    def _init_hbr(self):
+        from pnnp_tpu_torch.physics.hbr import HighBitRecovery
+
+        self.hbr = HighBitRecovery(
+            camera_type=self.args["camera_type"], noise_code=self.args["noise_code"]
+        )
+        iso_list = [int(i) for i in self.legal_iso]
+        self.hbr.get_lut(iso_list, blc_mean=None)
+
+    def _host_hbr(self, crops: np.ndarray, iso: int) -> np.ndarray:
+        """HBR of bias crops on the host (CPU tensors), seeded by exactly one
+        draw of the dataset's stream, as JAX's ``key(rng.integers(2**31))``:
+        every later draw stays in step with the JAX dataset."""
+        import torch
+
+        gen = torch.Generator().manual_seed(int(self.rng.integers(2**31)))
+        return self.hbr.map(gen, torch.from_numpy(np.ascontiguousarray(crops)),
+                            iso=iso).numpy()
+
+    def __getitem__(self, idx):
+        info = self.infos[idx]
+        iso = int(info["ISO"])
+        exp_ms = float(info["ExposureTime"]) * 1000.0
+        black_lr = bool(
+            "HB" in self.command and self.blacks and not self.rng.integers(4)
+        )
+        hr_raw = np.asarray(dataload(info["long"])).reshape(self.H, self.W)
+        if black_lr:
+            iso_near = int(self.legal_iso[np.argmin(np.abs(self.legal_iso - iso))])
+            files = self.blacks[iso_near]
+            n_pick = min(10, len(files)) if "lr10" in self.command else len(files)
+            lr_raw = np.asarray(dataload(files[self.rng.integers(n_pick)]))
+            lr_raw = lr_raw.reshape(self.H, self.W)
+            ratio = 400.0
+        else:
+            lr_id = self._pick_lr_id(idx) if self.args["mode"] == "train" else 0
+            lr_raw = np.asarray(dataload(info["short"][lr_id])).reshape(self.H, self.W)
+            ratio = float(info["ratio"][lr_id])
+        lr_raw = self.correct_lr(lr_raw, iso, exp_ms / ratio)
+        lr_raw = self.hotfix_lr(lr_raw, info["name"], black_lr)
+
+        lr = self.pack(lr_raw, clip=False)
+        hr = self.pack(hr_raw, clip=True)
+        planner = self.make_planner()
+        hr = planner.crop(hr)
+        if black_lr:
+            planner.replan()
+            lr = planner.crop(lr)
+            if "preHB" not in self.command and "HB" in self.command:
+                lr = self._host_hbr(lr, iso_near)
+        else:
+            lr = planner.crop(lr)
+        return {
+            "hr": np.ascontiguousarray(hr), "lr": np.ascontiguousarray(lr),
+            "ratio": np.full(len(hr), ratio, np.float32),
+            "iso": np.full(len(hr), iso, np.float32),
+            "wb": np.asarray(info["wb"], np.float32),
+            "ccm": np.asarray(info["ccm"], np.float32),
+            "black_lr": black_lr, "name": info["name"],
+        }
+
+
+class PMNNPDataset(SIDDataset):
+    """PMN+proxy hybrid: real paired data with dark-shading jitter. The
+    short-exposure pick is uniform (no idremap restriction) and black frames
+    are never substituted (reference: real_datasets.py:505-586). As in the
+    JAX Trainer, its synth is ``identity_synth``: the pairs train as they
+    are (ROADMAP section 3)."""
+
+    def _pick_lr_id(self, idx):
+        return int(self.rng.integers(len(self.infos[idx]["ratio"])))
+
+    def __getitem__(self, idx):
+        data = super().__getitem__(idx)
+        data["black_lr"] = False
+        return data
+
+
+class SFRNDataset(BaseRawDataset):
+    """Real bias frame + HBR + Poisson shot noise on the device (noise_code +
+    'b').
+
+    The host pairs each GT crop with a real bias-frame crop (the
+    signal-independent noise, HBR-remapped on the host); the train step adds
+    shot noise in black-frame mode (reference: syn_datasets.py:465-579).
+    """
+
+    def __init__(self, args=None, seed: int = 1997):
+        super().__init__(args, seed)
+        self.load_infos(f'SID_{self.args["mode"]}.info')
+        MixDataset._record_bias_frames(self)
+        MixDataset._init_hbr(self)
+
+    def __getitem__(self, idx):
+        info = self.infos[idx]
+        hr_raw = np.asarray(dataload(info["long"])).reshape(self.H, self.W)
+        hr = self.pack(hr_raw, clip=True)
+        iso = int(self.legal_iso[self.rng.integers(len(self.legal_iso))])
+        if self.blacks:
+            files = self.blacks[iso]
+            # 'lr10': restrict to the first 10 bias frames (syn_datasets.py:530)
+            n_pick = min(10, len(files)) if "lr10" in self.command else len(files)
+            lr_raw = np.asarray(dataload(files[self.rng.integers(n_pick)]))
+            black = self.pack(lr_raw.reshape(self.H, self.W), clip=False)
+        else:
+            black = np.zeros_like(hr)
+        planner = self.make_planner()
+        hr_c = planner.crop(hr)
+        planner.replan()
+        black_c = planner.crop(black)
+        if "HB" in self.command:
+            black_c = MixDataset._host_hbr(self, black_c, iso)
+        return {
+            "hr": np.ascontiguousarray(hr_c),
+            "lr": np.ascontiguousarray(black_c),  # read-noise layer; shot added on the device
+            "ratio": np.ones(len(hr_c), np.float32),
+            "iso": np.full(len(hr_c), iso, np.float32),
+            "wb": np.asarray(info["wb"], np.float32),
+            "ccm": np.asarray(info["ccm"], np.float32),
+            "name": info["name"],
+        }
+
+
 class TestDataset(BaseRawDataset):
     """GT-only folder loader for trainonly/inference (reference: real_datasets.py:721+)."""
 
@@ -411,32 +565,55 @@ class MultiDataset:
                 d.reseed_worker(seed, epoch, worker)
 
 
+def _phone_registry():
+    from pnnp_tpu_torch.data import phone
+
+    return {
+        "Real_Dataset": phone.LRIDRealDataset,
+        "IMX686_Dataset": phone.IMX686Dataset,
+        "IMX686_Mix_Dataset": phone.IMX686MixDataset,
+        "IMX686_PMNNP_Dataset": phone.IMX686MixDataset,
+        "IMX686_Raw_Dataset": phone.IMX686RawDataset,
+        "IMX686_NF_Syn_Dataset": phone.IMX686NFSynDataset,
+        "IMX686_Proxy_Dataset": phone.IMX686ProxyDataset,
+        "IMX686_SFRN_Raw_Dataset": phone.IMX686SFRNRawDataset,
+    }
+
+
 DATASET_REGISTRY = {
     "SID_Dataset": SIDDataset,
+    "PMNNP_Dataset": PMNNPDataset,
+    "Mix_Dataset": MixDataset,
     "Raw_Dataset": RawDataset,
     "NF_Syn_Dataset": NFSynDataset,
     "Proxy_Dataset": ProxyDataset,
+    "SFRN_Dataset": SFRNDataset,
     "ELD_Dataset": ELDDataset,
     "TestDataset": TestDataset,
 }
 
-# Datasets of the JAX package this port does not carry yet.
-_NOT_PORTED = ("Mix_Dataset", "PMNNP_Dataset", "SFRN_Dataset", "Img_Dataset",
-               "Real_Dataset", "Multi_Real_Dataset", "Multi_Sync_Dataset",
+# Datasets of the JAX package this port does not carry yet
+# (pnnp_tpu/data/extra.py and the Multi_* mixers of its build_dataset).
+_NOT_PORTED = ("Img_Dataset", "Multi_Real_Dataset", "Multi_Sync_Dataset",
                "Multi_Mix_Dataset", "Multi_Uproc_Dataset")
 
 
 def build_dataset(dst: dict, seed: int = 1997):
-    """Reference-style name dispatch (trainer_SID.py:48)."""
+    """Reference-style name dispatch (trainer_SID.py:48); the phone datasets
+    for ``IMX686*`` names, ``Real_Dataset`` or an IMX686 camera."""
     name = dst["dataset"]
+    registry = dict(DATASET_REGISTRY)
+    if (name.startswith("IMX686") or name == "Real_Dataset"
+            or dst.get("camera_type") == "IMX686"):
+        registry.update(_phone_registry())
     if name == "MultiDataset":
         subs = [build_dataset(dict(dst, dataset=n, dstname=d), seed=seed)
                 for n, d in zip(dst["datasets"], dst["dstnames"])]
         return MultiDataset(subs)
-    if name in _NOT_PORTED or name.startswith("IMX686"):
+    if name in _NOT_PORTED:
         raise KeyError(
-            f"dataset '{name}' is not ported yet (ROADMAP 1.11: other synth "
-            "families and datasets)")
-    if name not in DATASET_REGISTRY:
+            f"dataset '{name}' is not ported yet (ROADMAP 1.11: the rest, "
+            "Img_Dataset and the Multi_* mixers of data/extra.py)")
+    if name not in registry:
         raise KeyError(f"unknown dataset '{name}'")
-    return DATASET_REGISTRY[name](dst, seed=seed)
+    return registry[name](dst, seed=seed)

@@ -5,8 +5,8 @@ utils/utils.py:244-255). Here the host edge prefers pre-decoded ``.npy``
 mosaics (offline cache; see tools/decode_cache.py) and falls back to rawpy
 when present; packed outputs are channel-last RGBG for the device path.
 Info files are the reference's pickled list-of-dicts (reference:
-get_dataset_infos.py) — we read the same format (the writers live in
-``pnnp_tpu/data/infos.py``, not ported).
+get_dataset_infos.py): :func:`load_info` reads them, :func:`save_info`
+writes them (the index builders are in :mod:`pnnp_tpu_torch.data.infos`).
 """
 
 from __future__ import annotations
@@ -75,3 +75,21 @@ def load_info(path: str):
             return json.load(f)
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def save_info(infos, path: str):
+    """Write a dataset info index (.info pickle, or .json by suffix)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if path.endswith(".json"):
+        def clean(o):
+            if isinstance(o, np.ndarray):
+                return o.tolist()
+            if isinstance(o, (np.floating, np.integer)):
+                return o.item()
+            raise TypeError(type(o))
+
+        with open(path, "w") as f:
+            json.dump(infos, f, default=clean)
+    else:
+        with open(path, "wb") as f:
+            pickle.dump(infos, f)

@@ -17,6 +17,7 @@ from pnnp_tpu_torch.train.steps import (
     identity_synth,
     make_eval_metrics_step,
     make_eval_step,
+    make_mix_synth,
     make_proxy_synth,
     make_raw_synth,
     make_train_step,

@@ -1,15 +1,17 @@
 """Train and eval steps (counterpart of ``pnnp_tpu/train/steps.py``).
 
-Train half (:33-351): the synth stages that turn a host batch into a noisy /
-clean pair on the device (``make_raw_synth``, the physics synth of the
-Raw_Dataset family; ``make_proxy_synth``, the learned proxy's, for the
-Proxy_Dataset family; ``identity_synth``, for real pairs), and the train step:
+Train half: the synth stages that turn a host batch into a noisy / clean
+pair on the device (``make_raw_synth``, the physics synth of the Raw_Dataset
+family and, in black-frame mode, of SFRN; ``make_proxy_synth``, the learned
+proxy's, for the Proxy_Dataset family; ``make_mix_synth``, PMN's shot-noise
+augmentation of real pairs, for the Mix family; ``identity_synth``, for real
+pairs), and the train step:
 synth -> clip -> forward + L1 loss -> backward -> Adam scaled by
 ``lr(epoch)``. Images are NCHW tensors on the device; every random draw
 comes from the ``torch.Generator`` passed to the step.
 
-Eval half (``pad_split`` :354, ``pad_to_multiple`` :364,
-``make_eval_metrics_step`` :376-486, ``make_eval_step`` :489): padded
+Eval half (``pad_split``, ``pad_to_multiple``, ``make_eval_metrics_step``,
+``make_eval_step``; ``pnnp_tpu/train/steps.py:354-489`` in JAX): padded
 full-frame forward fused with the eval metrics. Its public layouts are the
 JAX package's: NHWC frames, or channel-interleaved flat ``[1, H, W*4]``; the
 steps convert to NCHW only around the model.
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from pnnp_tpu_torch.kernels.ssim import ssim_flat
 from pnnp_tpu_torch.ops.correct import illuminance_correct
 from pnnp_tpu_torch.physics.calibration import HALF_CLIP, LEGAL_ISO
-from pnnp_tpu_torch.physics.noise import generate_noisy
+from pnnp_tpu_torch.physics.noise import generate_noisy, get_aug_param, sna
 from pnnp_tpu_torch.physics.sampling import sample_params_max
 from pnnp_tpu_torch.train.losses import unet_loss
 from pnnp_tpu_torch.train.state import apply_scaled_updates
@@ -137,6 +139,63 @@ def make_proxy_synth(sample_fn: Callable, ori: bool = False,
         # ori branch: dark signal + dark-scale noise
         lr = hr + noise * rb if not ori else hr / rb + noise
         return lr, hr, ratio
+
+    return synth
+
+
+def _per_crop(x: torch.Tensor, n: int, width: int = 0) -> torch.Tensor:
+    """A per-batch-item value as one row per crop: ``[n]`` (``width`` 0) or
+    ``[n, width]``. The loader's collate keeps one row per item for a python
+    scalar or a 1-D array (a bool ``black_lr``, a ``wb`` [4]); with
+    ``batch_size`` 1 that row broadcasts, as in JAX."""
+    x = x.float().reshape(-1, width) if width else x.float().reshape(-1)
+    if x.shape[0] != n:
+        x = x.repeat_interleave(n // x.shape[0], dim=0)
+    return x
+
+
+def make_mix_synth(camera_type: str, command: str = "augv5", ori: bool = False,
+                   hbr_map: Optional[Callable] = None, host_amplified: bool = False):
+    """PMN-style SNA over *real* noisy/clean pairs, as ``synth(generator,
+    batch) -> (lr, hr, ratio)``.
+
+    ``batch`` holds hr, lr [n, 4, h, w], ratio [n], iso [n], wb and,
+    optionally, black_lr: a bool or a per-crop 0/1 array marking crops whose
+    lr is a pasted real bias frame (reference: trainer_SID.py:430-447,
+    phone_datasets.py:585-640). ``hbr_map(generator, lr) -> lr`` is the
+    HighBitRecovery remap of the bias-frame crops (quantized read noise ->
+    continuous, reference: phone_datasets.py:632).
+
+    ``host_amplified``: the loader already multiplied lr by ratio (the IMX686
+    loaders do, inheriting the paired path); the synth then skips its own
+    multiply, so that the amplification happens exactly once.
+    """
+
+    def synth(generator, batch):
+        hr, lr = batch["hr"], batch["lr"]
+        n = hr.shape[0]
+        ratio = batch["ratio"].reshape(-1)
+        wb = _per_crop(batch["wb"], n, 4)
+        aug_r, aug_g, aug_b = get_aug_param(generator, wb, n, command, camera_type)
+        aug_wb = torch.stack([aug_r, aug_g, aug_b, aug_g], dim=1)
+        black = batch.get("black_lr")
+        black = (torch.zeros(n, device=hr.device) if black is None
+                 else _per_crop(torch.as_tensor(black, device=hr.device), n))
+        aug_wb = aug_wb + black[:, None]
+        rb = ratio.reshape(-1, 1, 1, 1)
+        if hbr_map is not None:
+            # The LUT addresses UNAMPLIFIED ADU bins (the reference remaps the
+            # raw bias crops before its preprocess multiplies by the dgain,
+            # phone_datasets.py:631, trainer_LRID.py:378): a host-amplified
+            # lr is unamplified around the remap.
+            amp = rb if (host_amplified and not ori) else 1.0
+            lr = torch.where(black.reshape(-1, 1, 1, 1) > 0,
+                             hbr_map(generator, lr / amp) * amp, lr)
+        if not (ori or host_amplified):
+            lr = lr * rb
+        dn, dy = sna(generator, hr, aug_wb, camera_type=camera_type, ratio=ratio,
+                     iso=batch.get("iso"), black_lr=black, ori=ori)
+        return lr + dn, hr + dy, ratio
 
     return synth
 

@@ -8,27 +8,32 @@ package loads in the other.
 
 Training keeps float32 master parameters and steps through
 :class:`~pnnp_tpu_torch.train.steps.TrainStep`: the on-device synth picked
-from the train dataset (physics ``Raw_Dataset``; the learned
-``pw_iso_2stage`` proxy of ``arch_proxy`` for ``Proxy_Dataset``, the
-paper's PNNP recipe, its weights from ``proxy_checkpoint``; or real
-pairs), then
-forward, L1, backward and Adam scaled by ``lr(epoch)``. UNetSeeInDark
+from the train dataset, as the JAX Trainer picks it (physics for
+``Raw_Dataset`` and, with the LRID law, ``IMX686_Raw_Dataset``; the learned
+``pw_iso_2stage`` proxy of ``arch_proxy`` for the ``Proxy_Dataset`` names,
+the paper's PNNP recipe, its weights from ``proxy_checkpoint``; PMN's
+shot-noise augmentation of real pairs for the ``Mix_Dataset`` names, with
+HighBitRecovery of the IMX686 bias pastes on the card; black-frame shot
+noise plus the real read layer for the SFRN names; or real pairs, the PMNNP
+names included, as in JAX), then forward, L1, backward and Adam scaled by
+``lr(epoch)``. UNetSeeInDark
 trains with a bf16 forward under autocast (f32 with ``disable_fast_path:
 true``). ``train`` evaluates every ``plot_freq`` epochs, reloads the best
 weights at each SGDR period boundary, and ends with the ``evaltest`` sweep
 over the best weights; ``trainonly`` trains without the eval legs.
 
 Eval serves UNetSeeInDark in bf16 (f32 with ``disable_fast_path: true``)
-through one fused step: forward, clip, illuminance correction, PSNR and the
-CUDA SSIM kernel. In the train modes it serves a bf16 copy of the master
-weights, refreshed at each eval leg.
+through one fused step: forward, clip, illuminance correction (not for the
+IMX686 datasets, as the reference's LRID trainer), PSNR and the CUDA SSIM
+kernel. In the train modes it serves a bf16 copy of the master weights,
+refreshed at each eval leg.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-the NoiseFlow synth (1.12), the Mix/SFRN/IMX686 synth
-families (1.11), deep supervision (1.13), ``--int8`` serving (1.15),
-``rgb_metrics`` (1.14) and :meth:`Trainer.predict` (1.14). With
-``save_plot`` the input meters are computed, but figure rendering (1.14) is
-skipped with one logged line.
+the NoiseFlow synth (1.12), deep supervision (1.13), ``--int8`` serving
+(1.15), ``rgb_metrics`` (1.14) and :meth:`Trainer.predict` (1.14); the
+``Img_Dataset`` and ``Multi_*`` datasets raise ``KeyError`` naming the rest
+of 1.11. With ``save_plot`` the input meters are computed, but figure
+rendering (1.14) is skipped with one logged line.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from pnnp_tpu_torch.train import (
     make_adam,
     make_eval_metrics_step,
     make_eval_step,
+    make_mix_synth,
     make_proxy_synth,
     make_raw_synth,
     make_train_step,
@@ -64,6 +70,15 @@ from pnnp_tpu_torch.utils.logging import AverageMeter, StepTimer, log
 _FIGURES_SKIPPED = ("figure rendering is not ported yet (ROADMAP 1.14: ISP); "
                     "sample figures skipped")
 _TRAIN_MODES = ("train", "trainonly")
+_NOISEFLOW_SYNTH = ("NF_Syn_Dataset", "IMX686_NF_Syn_Dataset")
+
+
+def _check_synth_ported(name: str) -> None:
+    """Raise for a train dataset whose synth is not ported: falling through
+    to identity_synth would train the net on noise-free pairs (lr == hr)."""
+    if name in _NOISEFLOW_SYNTH:
+        raise NotImplementedError(
+            f"{name}: the NoiseFlow synth is not ported yet (ROADMAP 1.12)")
 
 
 class Parser:
@@ -147,10 +162,20 @@ class Trainer:
         if arch_proxy and self.training:
             self._init_proxy(arch_proxy)
 
-        # --- train step (before the datasets: unported families raise) ----
+        # --- datasets ------------------------------------------------------
         self.dst_train = self.args.get("dst_train")
         self.dst_eval = self.args.get("dst_eval")
         self.dst_test = self.args.get("dst_test")
+        self.dataset_train = None
+        self.dataset_eval = None
+        if self.training and self.dst_train:
+            _check_synth_ported(self.dst_train["dataset"])  # before any data loads
+            self.dataset_train = build_dataset(self.dst_train, seed=seed)
+        if self.dst_eval and self.mode != "trainonly":
+            self.dataset_eval = build_dataset(self.dst_eval, seed=seed)
+
+        # --- train step (after the datasets: the IMX686 synth reads the
+        # train dataset's noiseparam calibration) --------------------------
         self.synth = self._make_synth()
         self.train_step = self.opt = None
         if self.training:
@@ -158,14 +183,6 @@ class Trainer:
                 self.lr_schedule, self.synth, clip_mode=self.dst.get("clip", 0),
                 deep_supervision=bool(self.arch.get("use_dpsv", False)), bf16=fast)
             self.opt = make_adam(self.model.parameters())
-
-        # --- datasets ------------------------------------------------------
-        self.dataset_train = None
-        self.dataset_eval = None
-        if self.training and self.dst_train:
-            self.dataset_train = build_dataset(self.dst_train, seed=seed)
-        if self.dst_eval and self.mode != "trainonly":
-            self.dataset_eval = build_dataset(self.dst_eval, seed=seed)
 
         # --- eval steps ----------------------------------------------------
         self.eval_step = make_eval_step(self.eval_model)
@@ -235,19 +252,46 @@ class Trainer:
             log(f"Loaded proxy checkpoint {proxy_ckpt}")
         self.proxy.to(self.device).eval().requires_grad_(False)
 
+    # Keys of the host batch that each synth family reads (see _train_batch).
+    _PAIR_KEYS = ("lr", "hr", "ratio")
+    _MIX_KEYS = ("hr", "lr", "ratio", "iso", "wb", "black_lr")
+
     def _make_synth(self):
         """The on-device synthesis stage, by train dataset (the reference
-        preprocess dispatch, trainer_SID.py:428-472). Families not ported yet
-        raise: falling through to identity_synth would train the net on
-        noise-free pairs (lr == hr) for the whole run."""
+        preprocess dispatch, trainer_SID.py:428-472, as the JAX Trainer's
+        ``_make_synth``); sets ``synth_keys``, the batch keys it reads.
+        The NF_Syn names raise (:func:`_check_synth_ported`)."""
+        self.synth_keys = self._PAIR_KEYS
         if not self.dst_train or not self.training:
             return identity_synth
         name = self.dst_train["dataset"]
+        cam = self.dst.get("camera_type", "SonyA7S2")
+        code = self.dst.get("noise_code", "p")
+        ori = bool(self.dst.get("ori", False))
+        clip = self.dst.get("clip", 0)
+        # dataset-level flags live in the dst_train block (falling back to
+        # the shared dst block); either may be an explicit empty string
+        command = self.dst_train.get("command") or self.dst.get("command") or ""
+        if name in ("Raw_Dataset", "IMX686_Raw_Dataset"):
+            self.synth_keys = ("hr",)
+            # IMX686 (trainer_LRID.py:399-418): the ISO-6400 point
+            # calibration with only-K jitter and a linear ratio ~ U(1, 16),
+            # from the dataset's noiseparam h5 when it loaded one
+            lrid = name == "IMX686_Raw_Dataset"
+            iso = int(self.dst.get("iso", 6400)) if lrid else None
+            nps = None
+            if lrid:
+                ds = self.dataset_train
+                ds = ds.datasets[0] if hasattr(ds, "datasets") else ds
+                nps = getattr(ds, "noiseparam", {}).get(iso)
+            return make_raw_synth(cam, code, ori, clip, gtdn="GTdn" in command,
+                                  iso=iso, lrid=lrid, noiseparam=nps)
         if name in ("Proxy_Dataset", "IMX686_Proxy_Dataset"):
             if self.proxy is None:
                 raise RuntimeError(
                     f"{name} requires a proxy network: set arch_proxy in the "
                     "runfile (and make its checkpoint loadable)")
+            self.synth_keys = ("hr", "iso")
             proxy = self.proxy
 
             def sample_fn(generator, clean, iso):
@@ -255,7 +299,6 @@ class Trainer:
                 with torch.autocast(clean.device.type, enabled=False):
                     return proxy.sample(clean.float(), iso, generator)
 
-            ori = bool(self.dst.get("ori", False))
             if name.startswith("IMX686"):
                 # LRID law (trainer_LRID.py:419-427): one dgain per batch from
                 # the ladder, the ISO of the batch's own dataset
@@ -264,21 +307,43 @@ class Trainer:
             # Sony law (trainer_SID.py:463-472): per-example ratio ~ U(100, 300),
             # one legal-ladder ISO per batch
             return make_proxy_synth(sample_fn, ori=ori, ratio_range=(100.0, 300.0))
-        if name in ("NF_Syn_Dataset", "IMX686_NF_Syn_Dataset"):
-            raise NotImplementedError(
-                f"{name}: the NoiseFlow synth is not ported yet (ROADMAP 1.12)")
-        if name in ("Mix_Dataset", "IMX686_Mix_Dataset", "SFRN_Dataset",
-                    "IMX686_SFRN_Raw_Dataset", "IMX686_Raw_Dataset"):
-            raise NotImplementedError(
-                f"{name}: this synth family is not ported yet (ROADMAP 1.11)")
-        if name == "Raw_Dataset":
-            # dataset-level flags live in the dst_train block (falling back to
-            # the shared dst block); either may be an explicit empty string
-            command = self.dst_train.get("command") or self.dst.get("command") or ""
-            return make_raw_synth(
-                self.dst.get("camera_type", "SonyA7S2"), self.dst.get("noise_code", "p"),
-                bool(self.dst.get("ori", False)), self.dst.get("clip", 0),
-                gtdn="GTdn" in command)
+        _check_synth_ported(name)
+        if name in ("Mix_Dataset", "IMX686_Mix_Dataset"):
+            self.synth_keys = self._MIX_KEYS
+            hbr_map = None
+            if name == "IMX686_Mix_Dataset" and "HB" in command:
+                # the LRID bias pastes reach the synth raw: HighBitRecovery
+                # runs here, on the card, with the library's ISO-6400 LUT
+                # (phone_datasets.py:631). Sony's Mix_Dataset remaps on the
+                # host with the nearest-ISO LUT (real_datasets.py:471-473);
+                # a second remap here would re-dither with the wrong ISO.
+                from pnnp_tpu_torch.physics.hbr import HighBitRecovery
+
+                iso = int(self.dst.get("iso", 6400))
+                hbr = HighBitRecovery(camera_type=cam, noise_code=code)
+                hbr.get_lut([iso])
+                hbr_map = lambda g, x: hbr.map(g, x, iso=iso)
+            # the IMX686 Mix loader inherits the paired loader's host-side
+            # lr*dgain; Sony's Mix loader leaves it to the synth
+            return make_mix_synth(cam, command or "augv5", ori=ori, hbr_map=hbr_map,
+                                  host_amplified=name == "IMX686_Mix_Dataset")
+        if name in ("SFRN_Dataset", "IMX686_SFRN_Raw_Dataset"):
+            # black-frame mode: shot-only synthesis (noise_code + 'b') on the
+            # GT plus the real bias-frame read layer, amplified alike
+            # (reference: syn_datasets.py:465-579)
+            self.synth_keys = ("hr", "lr")
+            raw = make_raw_synth(cam, code + "b", ori, clip)
+
+            def synth(generator, batch):
+                lr_shot, hr, ratio = raw(generator, batch)
+                read_layer = batch["lr"]
+                if not ori:
+                    read_layer = read_layer * ratio.reshape(-1, 1, 1, 1)
+                return lr_shot + read_layer, hr, ratio
+
+            return synth
+        # paired data, PMNNP_Dataset and IMX686_PMNNP_Dataset included: the
+        # JAX Trainer gives them no synth either (ROADMAP section 3)
         return identity_synth
 
     def _try_restore(self):
@@ -318,14 +383,12 @@ class Trainer:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _train_batch(self, batch: dict) -> dict:
-        """Host batch -> the tensors the synth reads, on the device, images
-        NCHW: the synths read the clean crops (and the IMX686 proxy law the
-        batch's ISO); real pairs need lr, hr and the ratio."""
-        keys = ("lr", "hr", "ratio") if self.synth is identity_synth else ("hr", "iso")
+        """Host batch -> the tensors its synth reads (``synth_keys``), on the
+        device, images NCHW."""
         out = {}
-        for k in keys:
+        for k in self.synth_keys:
             if k in batch:
-                t = self._to_device(batch[k])
+                t = self._to_device(np.asarray(batch[k], np.float32))
                 out[k] = t.permute(0, 3, 1, 2).contiguous() if t.dim() == 4 else t
         return out
 

@@ -159,8 +159,8 @@ def test_multidataset_and_unported_names(tmp_path):
     # SID_Dataset's default 250 split is empty with 2 scenes; Raw_Dataset has 2
     assert isinstance(m, tdata.MultiDataset) and len(m) == 0 + 2
     _assert_batches_equal(m[1], jdata.build_dataset(dst)[1])
-    for name in ("Mix_Dataset", "PMNNP_Dataset", "SFRN_Dataset",
-                 "IMX686_Dataset", "Multi_Mix_Dataset"):
+    for name in ("Img_Dataset", "Multi_Real_Dataset", "Multi_Sync_Dataset",
+                 "Multi_Mix_Dataset", "Multi_Uproc_Dataset"):
         with pytest.raises(KeyError, match="ROADMAP 1.11"):
             tdata.build_dataset(dict(dst, dataset=name))
     with pytest.raises(KeyError, match="unknown dataset"):

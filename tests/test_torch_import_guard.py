@@ -49,6 +49,9 @@ def test_forbidden_matcher_is_exact():
 def test_no_forbidden_import_in_sources():
     files = _port_files()
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"pnnp_tpu_torch/data/phone.py", "pnnp_tpu_torch/data/infos.py",
+            "pnnp_tpu_torch/physics/hbr.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert not bad, bad
@@ -61,9 +64,12 @@ def test_importing_the_port_loads_no_forbidden_module():
         "import pnnp_tpu_torch, pnnp_tpu_torch.trainer, pnnp_tpu_torch.kernels.ssim\n"
         "import pnnp_tpu_torch.data.fixtures, pnnp_tpu_torch.kernels.build\n"
         "import pnnp_tpu_torch.trainer_nf, pnnp_tpu_torch.tools.validate_proxy\n"
+        "import pnnp_tpu_torch.data.phone, pnnp_tpu_torch.data.infos\n"
+        "import pnnp_tpu_torch.physics.hbr, pnnp_tpu_torch.physics.noise\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
-        "assert 'pnnp_tpu_torch.trainer' in new\n"
+        "assert {'pnnp_tpu_torch.trainer', 'pnnp_tpu_torch.data.phone',\n"
+        "        'pnnp_tpu_torch.physics.hbr'} <= new\n"
         "print('BAD', bad)\n" % (FORBIDDEN,)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -360,8 +360,8 @@ def test_proxy_families_need_their_parts(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="requires a proxy network"):
         Trainer(_write(tmp_path / "a.yml", run), device="cpu")
     run = _pnnp_run(tmp_path, "train")
-    run["dst_train"]["dataset"] = "IMX686_Proxy_Dataset"
-    with pytest.raises(KeyError, match="ROADMAP 1.11"):
+    run["dst_train"]["dataset"] = "NF_Syn_Dataset"
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.12"):
         Trainer(_write(tmp_path / "b.yml", run), device="cpu")
     # eval modes build no proxy
     t = Trainer(_write(tmp_path / "c.yml", _pnnp_run(tmp_path, "eval")), device="cpu")

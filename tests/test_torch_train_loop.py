@@ -240,8 +240,7 @@ def test_recovers_from_runtime_error(raw_root, capsys):
 
 
 @pytest.mark.parametrize("dataset,item", [
-    ("NF_Syn_Dataset", "1.12"), ("IMX686_NF_Syn_Dataset", "1.12"), ("Mix_Dataset", "1.11"),
-    ("SFRN_Dataset", "1.11"), ("IMX686_Raw_Dataset", "1.11"), ("dpsv", "1.13"),
+    ("NF_Syn_Dataset", "1.12"), ("IMX686_NF_Syn_Dataset", "1.12"), ("dpsv", "1.13"),
 ])
 def test_unported_train_families_raise(raw_root, dataset, item):
     run = _raw_run(raw_root, mode="train")
