@@ -145,3 +145,54 @@ def params_to_jax(state_dict: Mapping[str, Any]) -> dict:
     copied: later updates of the module do not show through."""
     return torch_state_to_flax(
         {k: v.detach().float().cpu().clone() for k, v in state_dict.items()})
+
+
+def _flat(tree: Mapping[str, Any], path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def flow_params_from_jax(params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any] | None = None) -> dict:
+    """NoiseFlow's JAX ``params`` and ``batch_stats`` trees (numpy leaves;
+    module names as ``pnnp_tpu/models/noise_flow.py:37-50``) -> a
+    ``state_dict`` of :class:`pnnp_tpu_torch.models.NoiseFlow`. Conv kernels
+    go HWIO -> OIHW, BatchNorm ``scale`` becomes ``weight`` and the stats
+    ``mean``/``var`` the ``running_*`` buffers; every other leaf keeps its
+    path and shape."""
+    out = {}
+    for path, v in _flat(params):
+        arr = np.asarray(v, np.float32)
+        *mod, leaf = path
+        if leaf == "kernel":
+            leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif leaf == "scale" and mod[-1].startswith("bn"):
+            leaf = "weight"
+        # np.array, not ascontiguousarray: the 0-d leaves (gain, beta1, ...) stay 0-d
+        out[".".join(mod + [leaf])] = torch.from_numpy(np.array(arr))
+    for path, v in _flat(batch_stats or {}):
+        *mod, leaf = path
+        out[".".join(mod + [f"running_{leaf}"])] = torch.from_numpy(np.array(v, np.float32))
+    return out
+
+
+def flow_params_to_jax(state_dict: Mapping[str, Any]) -> tuple[dict, dict]:
+    """Inverse of :func:`flow_params_from_jax`: (params, batch_stats) trees
+    of float32 numpy arrays, copied."""
+    params: dict = {}
+    stats: dict = {}
+    for key, val in state_dict.items():
+        arr = val.detach().float().cpu().numpy().copy()
+        *mod, leaf = key.split(".")
+        if leaf.startswith("running_"):
+            _set_nested(stats, mod + [leaf[len("running_"):]], arr)
+            continue
+        if leaf == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", np.array(arr.transpose(2, 3, 1, 0))
+        elif leaf == "weight":
+            leaf = "scale"
+        _set_nested(params, mod + [leaf], arr)
+    return params, stats

@@ -1,7 +1,9 @@
 """Model registry: YAML ``arch.name`` -> ``nn.Module`` (counterpart of
 ``pnnp_tpu/models/registry.py``). Only ``UNetSeeInDark`` is ported; the
 rest of the family waits for ROADMAP 1.13. :func:`build_proxy` builds the
-noise proxy of a runfile's ``arch_proxy`` block."""
+noise model of a runfile's ``arch_proxy`` block (the ``pw_iso_2stage`` proxy
+or NoiseFlow); :func:`load_proxy_jax` and :func:`proxy_to_jax` move its
+weights to and from the JAX checkpoint trees."""
 
 from __future__ import annotations
 
@@ -9,6 +11,13 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from pnnp_tpu_torch.models.convert import (
+    flow_params_from_jax,
+    flow_params_to_jax,
+    params_from_jax,
+    params_to_jax,
+)
+from pnnp_tpu_torch.models.noise_flow import ARCH, NoiseFlow
 from pnnp_tpu_torch.models.proxy import PixelWiseISOProxy
 from pnnp_tpu_torch.models.unet import UNetSeeInDark
 
@@ -51,17 +60,24 @@ def build_model(arch: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
 
 
 def build_proxy(arch_proxy: Mapping[str, Any], wp: float = 16383.0, bl: float = 512.0,
-                generator: Optional[torch.Generator] = None) -> PixelWiseISOProxy:
-    """The ``pw_iso_2stage`` proxy of an ``arch_proxy`` block, with the keys
-    and defaults the JAX Trainer reads (pnnp_tpu/trainer.py:275-285): ISO2K,
-    nf, nb, d, mode, lookup, smooth_s0; ``wp``/``bl`` come from the ``dst``
-    block. ``generator`` seeds flax's Dense init law. Built on the CPU."""
+                generator: Optional[torch.Generator] = None):
+    """The noise model of an ``arch_proxy`` block, built on the CPU.
+
+    * ``NoiseFlow`` / ``noise_flow`` names: :class:`NoiseFlow` with the
+      block's ``arch`` string and ``flow_permutation``.
+    * ``pw_iso`` names: the ``pw_iso_2stage`` proxy with the keys and
+      defaults the JAX Trainer reads (pnnp_tpu/trainer.py:275-285): ISO2K,
+      nf, nb, d, mode, lookup, smooth_s0; ``wp``/``bl`` come from the
+      ``dst`` block.
+
+    ``generator`` seeds the init law (flax's, with other draws)."""
     name = str(arch_proxy.get("name", ""))
     if "NoiseFlow" in name or "noise_flow" in name:
-        raise NotImplementedError(
-            f"arch_proxy '{name}': NoiseFlow is not ported yet (ROADMAP 1.12)")
+        return NoiseFlow(arch=arch_proxy.get("arch", ARCH),
+                         flow_permutation=int(arch_proxy.get("flow_permutation", 1)),
+                         generator=generator)
     if "pw_iso" not in name:
-        raise KeyError(f"unknown arch_proxy '{name}'; known: pw_iso_2stage")
+        raise KeyError(f"unknown arch_proxy '{name}'; known: pw_iso_2stage, NoiseFlow")
     return PixelWiseISOProxy(
         iso2k=tuple(arch_proxy.get("ISO2K", (0.0009546, -0.00193))),
         nf=int(arch_proxy.get("nf", 16)),
@@ -73,3 +89,19 @@ def build_proxy(arch_proxy: Mapping[str, Any], wp: float = 16383.0, bl: float = 
         smooth_s0=float(arch_proxy.get("smooth_s0", 0.3)),
         generator=generator,
     )
+
+
+def load_proxy_jax(proxy, params, batch_stats=None) -> None:
+    """Load a JAX checkpoint's ``params`` (and NoiseFlow's ``batch_stats``)
+    into ``proxy``, strictly, in place."""
+    state = (flow_params_from_jax(params, batch_stats) if isinstance(proxy, NoiseFlow)
+             else params_from_jax(params))
+    proxy.load_state_dict(state, strict=True)
+
+
+def proxy_to_jax(proxy):
+    """``proxy``'s weights as the JAX checkpoint trees (params, batch_stats);
+    the proxy has no ``batch_stats``: ``{}``."""
+    if isinstance(proxy, NoiseFlow):
+        return flow_params_to_jax(proxy.state_dict())
+    return params_to_jax(proxy.state_dict()), {}

@@ -8,7 +8,9 @@ spanning ISOs 800/1600/3200/12800, then reports per ISO:
     reference's noise-model metric, trainer_NF_SID.py:163-180 /
     utils/kld_div.py:163), beside the real-vs-real floor;
   * the ROW-MARGINAL KLD: per-(row, channel) means of real vs sampled
-    noise, the 2nd stage's banding on its own;
+    noise, the 2nd stage's banding on its own, beside the learned row law's
+    own standard deviation and support width (ADU): a row head whose
+    log-scale sits at its lower clamp shows a support of 2 e^-2 = 0.27;
   * the same at ISO 6400, held out of training (interpolation probe).
 
 Usage (from the repository root; on the card unless ``--cpu``):
@@ -64,7 +66,12 @@ def main(argv=None, device=None, seed: int = 0, init=None):
     import numpy as np
     import torch
 
-    from pnnp_tpu_torch.models import PixelWiseISOProxy, params_from_jax, params_to_jax
+    from pnnp_tpu_torch.models import (
+        PixelWiseISOProxy,
+        QuantileHead,
+        params_from_jax,
+        params_to_jax,
+    )
     from pnnp_tpu_torch.ops.kld import kl_div_norm_device
     from pnnp_tpu_torch.physics import calibration as calib
     from pnnp_tpu_torch.physics.noise import generate_noisy
@@ -154,20 +161,31 @@ def main(argv=None, device=None, seed: int = 0, init=None):
         return (kl(real, fake), kl(real, real2),
                 kl(rmean(real), rmean(fake)), kl(rmean(real), rmean(real2)))
 
+    @torch.no_grad()
+    def row_law(iso):
+        """(std, support width) of the row head's law at ``iso``, ADU."""
+        _, _, hp = proxy.heads(torch.tensor([float(iso)], device=dev), 1)
+        return (float(QuantileHead.variance(hp).sqrt()),
+                float(hp.knots[0, -1] - hp.knots[0, 0]))
+
     rows = []
     for iso in TRAIN_ISOS + (HELDOUT_ISO,):
         kf, kf0, kr, kr0 = score(iso, 1000 + iso + seed)
+        law_std, law_support = row_law(iso)
         rows.append({"iso": iso, "kld": round(kf, 4), "kld_floor": round(kf0, 4),
                      "row_kld": round(kr, 4), "row_floor": round(kr0, 4),
+                     "row_law_std": round(law_std, 4), "row_law_support": round(law_support, 4),
                      "heldout": iso == HELDOUT_ISO})
 
     print(f"\npw_iso_2stage (d={a.d}) trained {a.steps} steps on ISOs {TRAIN_ISOS} "
           f"on {dev} ({train_s:.0f}s); final nll/dim={nll:.4f}")
-    print(f"{'ISO':>7} | {'KLD(sym)':>9} {'floor':>7} | {'row KLD':>8} {'floor':>7} | note")
+    print(f"{'ISO':>7} | {'KLD(sym)':>9} {'floor':>7} | {'row KLD':>8} {'floor':>7} | "
+          f"{'row law std':>11} {'support':>7} | note")
     for r in rows:
         note = "held-out (interpolation)" if r["heldout"] else ""
         print(f"{r['iso']:>7} | {r['kld']:>9.4f} {r['kld_floor']:>7.4f} | "
-              f"{r['row_kld']:>8.4f} {r['row_floor']:>7.4f} | {note}")
+              f"{r['row_kld']:>8.4f} {r['row_floor']:>7.4f} | {r['row_law_std']:>11.4f} "
+              f"{r['row_law_support']:>7.4f} | {note}")
     ok = (math.isfinite(nll)
           and all(math.isfinite(r["kld"]) and r["kld"] <= 0.1
                   for r in rows if not r["heldout"]))

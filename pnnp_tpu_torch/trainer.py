@@ -10,8 +10,9 @@ Training keeps float32 master parameters and steps through
 :class:`~pnnp_tpu_torch.train.steps.TrainStep`: the on-device synth picked
 from the train dataset, as the JAX Trainer picks it (physics for
 ``Raw_Dataset`` and, with the LRID law, ``IMX686_Raw_Dataset``; the learned
-``pw_iso_2stage`` proxy of ``arch_proxy`` for the ``Proxy_Dataset`` names,
-the paper's PNNP recipe, its weights from ``proxy_checkpoint``; PMN's
+noise model of ``arch_proxy`` for the ``Proxy_Dataset`` names (the
+``pw_iso_2stage`` proxy, the paper's PNNP recipe) and the ``NF_Syn_Dataset``
+names (NoiseFlow), its weights from ``proxy_checkpoint``; PMN's
 shot-noise augmentation of real pairs for the ``Mix_Dataset`` names, with
 HighBitRecovery of the IMX686 bias pastes on the card; black-frame shot
 noise plus the real read layer for the SFRN names; or real pairs, the PMNNP
@@ -29,7 +30,7 @@ kernel. In the train modes it serves a bf16 copy of the master weights,
 refreshed at each eval leg.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-the NoiseFlow synth (1.12), deep supervision (1.13), ``--int8`` serving
+deep supervision (1.13), ``--int8`` serving
 (1.15), ``rgb_metrics`` (1.14) and :meth:`Trainer.predict` (1.14); the
 ``Img_Dataset`` and ``Multi_*`` datasets raise ``KeyError`` naming the rest
 of 1.11. With ``save_plot`` the input meters are computed, but figure
@@ -49,7 +50,13 @@ import torch
 
 from pnnp_tpu_torch.config import command_of, load_runfile
 from pnnp_tpu_torch.data import DataLoader, build_dataset
-from pnnp_tpu_torch.models import build_model, build_proxy, params_from_jax, params_to_jax
+from pnnp_tpu_torch.models import (
+    build_model,
+    build_proxy,
+    load_proxy_jax,
+    params_from_jax,
+    params_to_jax,
+)
 from pnnp_tpu_torch.ops import illuminance_correct
 from pnnp_tpu_torch.train import (
     CheckpointManager,
@@ -70,15 +77,6 @@ from pnnp_tpu_torch.utils.logging import AverageMeter, StepTimer, log
 _FIGURES_SKIPPED = ("figure rendering is not ported yet (ROADMAP 1.14: ISP); "
                     "sample figures skipped")
 _TRAIN_MODES = ("train", "trainonly")
-_NOISEFLOW_SYNTH = ("NF_Syn_Dataset", "IMX686_NF_Syn_Dataset")
-
-
-def _check_synth_ported(name: str) -> None:
-    """Raise for a train dataset whose synth is not ported: falling through
-    to identity_synth would train the net on noise-free pairs (lr == hr)."""
-    if name in _NOISEFLOW_SYNTH:
-        raise NotImplementedError(
-            f"{name}: the NoiseFlow synth is not ported yet (ROADMAP 1.12)")
 
 
 class Parser:
@@ -169,7 +167,6 @@ class Trainer:
         self.dataset_train = None
         self.dataset_eval = None
         if self.training and self.dst_train:
-            _check_synth_ported(self.dst_train["dataset"])  # before any data loads
             self.dataset_train = build_dataset(self.dst_train, seed=seed)
         if self.dst_eval and self.mode != "trainonly":
             self.dataset_eval = build_dataset(self.dst_eval, seed=seed)
@@ -234,11 +231,13 @@ class Trainer:
         self.model.load_state_dict(params_from_jax(params), strict=True)
 
     def _init_proxy(self, arch_proxy: dict):
-        """The noise proxy of ``arch_proxy``: the ``pw_iso_2stage`` law at
-        flax's init from seed 0 (as the JAX Trainer's ``key(0)``), or the
-        weights of ``proxy_checkpoint`` when that file exists (a pickle of
-        either package). f32 on the device, frozen: the denoiser's step
-        does not train it. Other names leave no proxy, as in JAX."""
+        """The noise model of ``arch_proxy`` (the ``pw_iso_2stage`` proxy or
+        NoiseFlow) at its init law from seed 0 (as the JAX Trainer's
+        ``key(0)``), or the weights of ``proxy_checkpoint`` when that file
+        exists (a pickle of either package; NoiseFlow's with its
+        ``batch_stats``). f32 on the device, frozen, in eval mode: the
+        denoiser's step does not train it. Other names leave no proxy, as
+        in JAX."""
         name = str(arch_proxy.get("name", ""))
         if not any(k in name for k in ("pw_iso", "NoiseFlow", "noise_flow")):
             return
@@ -247,8 +246,8 @@ class Trainer:
                                  generator=torch.Generator().manual_seed(0))
         proxy_ckpt = self.args.get("proxy_checkpoint")
         if proxy_ckpt and os.path.exists(proxy_ckpt):
-            self.proxy.load_state_dict(params_from_jax(load_any(proxy_ckpt)["params"]),
-                                       strict=True)
+            loaded = load_any(proxy_ckpt)
+            load_proxy_jax(self.proxy, loaded["params"], loaded.get("batch_stats"))
             log(f"Loaded proxy checkpoint {proxy_ckpt}")
         self.proxy.to(self.device).eval().requires_grad_(False)
 
@@ -260,7 +259,7 @@ class Trainer:
         """The on-device synthesis stage, by train dataset (the reference
         preprocess dispatch, trainer_SID.py:428-472, as the JAX Trainer's
         ``_make_synth``); sets ``synth_keys``, the batch keys it reads.
-        The NF_Syn names raise (:func:`_check_synth_ported`)."""
+        """
         self.synth_keys = self._PAIR_KEYS
         if not self.dst_train or not self.training:
             return identity_synth
@@ -286,7 +285,8 @@ class Trainer:
                 nps = getattr(ds, "noiseparam", {}).get(iso)
             return make_raw_synth(cam, code, ori, clip, gtdn="GTdn" in command,
                                   iso=iso, lrid=lrid, noiseparam=nps)
-        if name in ("Proxy_Dataset", "IMX686_Proxy_Dataset"):
+        if name in ("Proxy_Dataset", "IMX686_Proxy_Dataset", "NF_Syn_Dataset",
+                    "IMX686_NF_Syn_Dataset"):
             if self.proxy is None:
                 raise RuntimeError(
                     f"{name} requires a proxy network: set arch_proxy in the "
@@ -295,7 +295,8 @@ class Trainer:
             proxy = self.proxy
 
             def sample_fn(generator, clean, iso):
-                # f32, whatever autocast the caller runs under
+                # f32, whatever autocast the caller runs under; NoiseFlow
+                # samples with its running BatchNorm stats
                 with torch.autocast(clean.device.type, enabled=False):
                     return proxy.sample(clean.float(), iso, generator)
 
@@ -307,7 +308,6 @@ class Trainer:
             # Sony law (trainer_SID.py:463-472): per-example ratio ~ U(100, 300),
             # one legal-ladder ISO per batch
             return make_proxy_synth(sample_fn, ori=ori, ratio_range=(100.0, 300.0))
-        _check_synth_ported(name)
         if name in ("Mix_Dataset", "IMX686_Mix_Dataset"):
             self.synth_keys = self._MIX_KEYS
             hbr_map = None

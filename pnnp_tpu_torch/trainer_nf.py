@@ -1,18 +1,20 @@
-"""Noise-model trainer: the ``pw_iso_2stage`` proxy by NLL on real noise
-(counterpart of ``pnnp_tpu/trainer_nf.py``; reference: trainer_NF_SID.py).
+"""Noise-model trainer: NoiseFlow or the ``pw_iso_2stage`` proxy by NLL on
+real noise (counterpart of ``pnnp_tpu/trainer_nf.py``; reference:
+trainer_NF_SID.py / trainer_NF_LRID.py).
 
-Trains the proxy on real noise residuals of paired data: the NLL of
-``(lr - hr) / ratio`` at the batch's ISO, masked to dark pixels, then Adam
-scaled by ``lr(epoch)``; each epoch ends with the KLD check between sampled
-and real noise histograms on a fixed held-out batch (reference:
-trainer_NF_SID.py:117-123, 163-180) and a checkpoint scored by it. Same CLI
-(``python -m pnnp_tpu_torch.trainer_nf -f runfile --kind proxy``), runfiles,
-log lines and checkpoint files as the JAX trainer; a checkpoint of either
-package loads in the other and drives ``Proxy_Dataset`` training
-(``proxy_checkpoint``).
+Trains the noise model on real noise residuals of paired data: the NLL of
+``(lr - hr) / ratio`` conditioned on ``(hr / ratio, iso)`` (NoiseFlow, its
+BatchNorm stats moving in train mode) or at the batch's ISO, masked to dark
+pixels (the proxy), then Adam scaled by ``lr(epoch)``; each epoch ends with
+the KLD check between sampled and real noise histograms on a fixed held-out
+batch (reference: trainer_NF_SID.py:117-123, 163-180) and a checkpoint
+scored by it. Same CLI (``python -m pnnp_tpu_torch.trainer_nf -f runfile
+--kind {noise_flow,proxy}``), runfiles, log lines and checkpoint files
+(NoiseFlow's with its ``batch_stats``) as the JAX trainer; a checkpoint of
+either package loads in the other and drives ``NF_Syn_Dataset`` /
+``Proxy_Dataset`` training (``proxy_checkpoint``).
 
-Not ported yet: the ``noise_flow`` kind (ROADMAP 1.12) and the data-parallel
-step over several devices (1.16).
+Not ported yet: the data-parallel step over several devices (ROADMAP 1.16).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from pnnp_tpu_torch.config import load_runfile
 from pnnp_tpu_torch.data import DataLoader, build_dataset
-from pnnp_tpu_torch.models import build_proxy, params_to_jax
+from pnnp_tpu_torch.models import build_proxy, proxy_to_jax
 from pnnp_tpu_torch.ops.kld import kl_div_norm_device
 from pnnp_tpu_torch.train import (
     CheckpointManager,
@@ -40,6 +42,30 @@ from pnnp_tpu_torch.utils.logging import AverageMeter, log
 # loaders that emit lr == hr: their noise is synthesized downstream
 _SYNTHETIC = ("NF_Syn_Dataset", "Proxy_Dataset", "IMX686_NF_Syn_Dataset",
               "IMX686_Proxy_Dataset")
+
+
+def make_nf_train_step(nf, lr_schedule, clip_norm: Optional[float] = None):
+    """``step(opt, lr_img, hr_img, ratio, iso, epoch) -> metrics`` for the
+    NoiseFlow ``nf`` whose parameters ``opt`` holds: the per-dim NLL of
+    ``(lr - hr) / ratio`` given ``clean = hr / ratio`` in train mode (the
+    couplings' BatchNorm stats move), then Adam scaled by ``lr(epoch)``.
+    The gradient uses that NLL; the reported ``nll`` is in the unscaled
+    noise domain (``+ mean(log ratio)``, the change of variables, as the
+    reference meter trainer_NF_SID.py:131) and ``sd_z`` is scaled by
+    ``mean(ratio)``. Images NCHW; ``nll``/``sd_z`` 0-dim tensors, ``lr`` a
+    float."""
+
+    def step(opt, lr_img, hr_img, ratio, iso, epoch):
+        rb = ratio.reshape(-1, 1, 1, 1)
+        opt.zero_grad(set_to_none=True)
+        nll, sd_z = nf.loss((lr_img - hr_img) / rb, clean=hr_img / rb, iso=iso, train=True)
+        nll.backward()
+        lr = float(lr_schedule(epoch))
+        apply_scaled_updates(opt, lr, clip_norm)
+        return {"nll": nll.detach() + torch.mean(torch.log(ratio)),
+                "sd_z": sd_z.detach() * torch.mean(ratio), "lr": lr}
+
+    return step
 
 
 def make_proxy_train_step(proxy, lr_schedule, dark_thresh: float = 2.0,
@@ -91,23 +117,25 @@ class NFTrainer:
         if "pw_iso" not in arch.get("name", "") and "pw_iso" in arch_proxy.get("name", ""):
             if model_kind == "proxy" or "NoiseFlow" not in arch.get("name", ""):
                 arch = arch_proxy
-        if not (model_kind == "proxy" or "pw_iso" in arch.get("name", "")):
-            raise NotImplementedError(
-                "the noise_flow kind (NoiseFlow) is not ported yet (ROADMAP 1.12)")
-        self.kind = "proxy"
         self.wp = float(self.dst.get("wp", 16383))
         self.bl = float(self.dst.get("bl", 512))
-        self.model = build_proxy(dict(arch, name="pw_iso_2stage"), wp=self.wp, bl=self.bl,
-                                 generator=torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        # opt-in global-norm gradient clipping via hyper.clip_norm
+        clip_norm = float(self.hyper["clip_norm"]) if self.hyper.get("clip_norm") else None
+        self.lr_schedule = build_lr_schedule(self.hyper)
+        if model_kind == "proxy" or "pw_iso" in arch.get("name", ""):
+            self.kind = "proxy"
+            self.model = build_proxy(dict(arch, name="pw_iso_2stage"), wp=self.wp, bl=self.bl,
+                                     generator=gen)
+            self.train_step = make_proxy_train_step(
+                self.model, self.lr_schedule,
+                dark_thresh=float(self.hyper.get("dark_thresh", 2.0)), clip_norm=clip_norm)
+        else:
+            self.kind = "noise_flow"
+            self.model = build_proxy(dict(arch, name="NoiseFlow"), generator=gen)
+            self.train_step = make_nf_train_step(self.model, self.lr_schedule, clip_norm)
         self.model.to(self.device)
         self.opt = make_adam(self.model.parameters())
-        self.lr_schedule = build_lr_schedule(self.hyper)
-        self.train_step = make_proxy_train_step(
-            self.model, self.lr_schedule,
-            dark_thresh=float(self.hyper.get("dark_thresh", 2.0)),
-            # opt-in global-norm gradient clipping via hyper.clip_norm
-            clip_norm=(float(self.hyper["clip_norm"]) if self.hyper.get("clip_norm")
-                       else None))
         self.ckpt = CheckpointManager(
             self.args.get("fast_ckpt", "checkpoints"),
             self.args.get("checkpoint", "saved_model"),
@@ -126,6 +154,8 @@ class NFTrainer:
 
     @torch.no_grad()
     def sample_noise(self, generator, clean, iso):
+        """A noise draw at ``(clean, iso)``; NoiseFlow samples with its
+        running BatchNorm stats."""
         return self.model.sample(clean, iso, generator)
 
     def kld_check(self, generator, lr_img, hr_img, ratio, iso, wp=16383, bl=512):
@@ -192,8 +222,7 @@ class NFTrainer:
                 log(f"Epoch {epoch}: KLD fwd={float(kld['kl_fwd']):.4f} "
                     f"inv={float(kld['kl_inv']):.4f} sym={float(kld['kl_sym']):.4f}",
                     logfile=self.logfile)
-            self.ckpt.save(epoch, params_to_jax(self.model.state_dict()), {},
-                           eval_psnr=-float(kld["kl_sym"]))
+            self.ckpt.save(epoch, *proxy_to_jax(self.model), eval_psnr=-float(kld["kl_sym"]))
 
 
 def main(argv=None, device=None):

@@ -99,10 +99,6 @@ def test_synth_dispatch_matches_jax(monkeypatch, name, command):
     _spy(T, tsteps, tcalls, monkeypatch)
     jt, pt = _bare_trainers(name, dst, command, proxy=object())
     jsynth = jt._make_synth()
-    if "NF_Syn" in name:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.12"):
-            pt._make_synth()
-        return
     tsynth = pt._make_synth()
     assert tcalls == jcalls
     assert (tsynth is T.identity_synth) == (jsynth is jax_trainer.identity_synth)

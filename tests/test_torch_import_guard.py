@@ -51,7 +51,10 @@ def test_no_forbidden_import_in_sources():
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"pnnp_tpu_torch/data/phone.py", "pnnp_tpu_torch/data/infos.py",
-            "pnnp_tpu_torch/physics/hbr.py"} <= names
+            "pnnp_tpu_torch/physics/hbr.py", "pnnp_tpu_torch/models/noise_flow.py",
+            "pnnp_tpu_torch/models/flows/base.py", "pnnp_tpu_torch/models/flows/sdn.py",
+            "pnnp_tpu_torch/models/flows/conv1x1.py", "pnnp_tpu_torch/models/flows/coupling.py",
+            "pnnp_tpu_torch/tools/validate_nf.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert not bad, bad
@@ -66,10 +69,13 @@ def test_importing_the_port_loads_no_forbidden_module():
         "import pnnp_tpu_torch.trainer_nf, pnnp_tpu_torch.tools.validate_proxy\n"
         "import pnnp_tpu_torch.data.phone, pnnp_tpu_torch.data.infos\n"
         "import pnnp_tpu_torch.physics.hbr, pnnp_tpu_torch.physics.noise\n"
+        "import pnnp_tpu_torch.models.noise_flow, pnnp_tpu_torch.models.flows\n"
+        "import pnnp_tpu_torch.tools.validate_nf\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
         "assert {'pnnp_tpu_torch.trainer', 'pnnp_tpu_torch.data.phone',\n"
-        "        'pnnp_tpu_torch.physics.hbr'} <= new\n"
+        "        'pnnp_tpu_torch.physics.hbr', 'pnnp_tpu_torch.models.flows.coupling',\n"
+        "        'pnnp_tpu_torch.models.flows.sdn'} <= new\n"
         "print('BAD', bad)\n" % (FORBIDDEN,)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -109,6 +115,15 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         NFTrainer(nf_path, model_kind="proxy")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         nf_main(["-f", nf_path, "--kind", "proxy"])
+    flow_path = str(tmp_path / "flow.yml")
+    with open(flow_path, "w") as f:
+        yaml.safe_dump(dict(nf_run, arch={"name": "NoiseFlow"}), f)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nf_main(["-f", flow_path, "--kind", "noise_flow"])
+    from pnnp_tpu_torch.tools.validate_nf import main as validate_nf
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        validate_nf(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:1")
     assert resolve_device("cpu") == torch.device("cpu")

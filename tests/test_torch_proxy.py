@@ -358,5 +358,13 @@ def test_build_proxy_reads_the_jax_trainer_keys():
     q = build_proxy({"name": "pw_iso_2stage"})
     assert (q.d, q.nf, q.nb, q.mode, q.lookup, q.smooth_s0, q.iso2k) == (
         1024, 16, 2, "2stage+iso", "dot", 0.3, (0.0009546, -0.00193))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.12"):
-        build_proxy({"name": "NoiseFlow"})
+    # NoiseFlow names build the flow, with the block's arch string and
+    # flow_permutation (tests/test_torch_flows.py holds it against JAX)
+    from pnnp_tpu_torch.models import NoiseFlow
+
+    f = build_proxy({"name": "NoiseFlow", "arch": "sdn|unc|giso", "flow_permutation": 0})
+    assert isinstance(f, NoiseFlow) and (f.arch, f.flow_permutation) == ("sdn|unc|giso", 0)
+    assert f.order == ("sdn_0", "unc_1", "giso_2")
+    assert build_proxy({"name": "noise_flow"}).order[:3] == ("sdn_0", "conv1x1_1", "unc_1")
+    with pytest.raises(KeyError, match="unknown arch_proxy"):
+        build_proxy({"name": "Gaussian"})

@@ -239,15 +239,10 @@ def test_recovers_from_runtime_error(raw_root, capsys):
     assert {int(s["step"]) for s in t.opt.state.values()} == {2}
 
 
-@pytest.mark.parametrize("dataset,item", [
-    ("NF_Syn_Dataset", "1.12"), ("IMX686_NF_Syn_Dataset", "1.12"), ("dpsv", "1.13"),
-])
+@pytest.mark.parametrize("dataset,item", [("dpsv", "1.13")])
 def test_unported_train_families_raise(raw_root, dataset, item):
     run = _raw_run(raw_root, mode="train")
-    if dataset == "dpsv":
-        run["arch"]["use_dpsv"] = True
-    else:
-        run["dst_train"]["dataset"] = dataset
+    run["arch"]["use_dpsv"] = True
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP {item}")):
         Trainer(_write(raw_root / "run.yml", run), device="cpu")
 
