@@ -93,7 +93,26 @@ and no result line):
    tests/test_nf_kld_parity.py (4000 steps, patch 16, batch 4), held to its
    bars: it runs in a process of its own beside phase 6, since both are
    bound by the host;
-10. timings with CUDA events after warm-up: the fused eval step in bf16 and
+10. the recipe A/B (``pnnp_tpu_torch/tools/ab_proxy_vs_physics.py``) at
+   full width (patch 512, batch 8, nf 32, d 256) with its budget cut
+   (``AB_ARGS``), in a process of its own beside phase 6: held to
+   tests/test_ab_recipe.py's bars (8 finite rows, the held-out ISO, |mean
+   delta| <= 0.3 dB, worst >= -0.6, both arms 4 dB over the input at ratio
+   300 and ISO >= 6400);
+11. the eval's other paths (``phase_eval_paths``) on a 2-scene 2848x4256
+   SID fixture with phase 3's runfile and checkpoint: ``--mode eval`` with
+   ``rgb_metrics`` and figures on (per frame one ``hopper`` launch for the
+   raw SSIM and two ``generic`` ones for the sRGB SSIM of input and
+   output; frame 0's sRGB PSNR / SSIM recomputed by the plain versions on
+   the card and on the CPU; ``rgb_quality`` timed; the figures checked on
+   disk, or their one logged skip without matplotlib), with
+   ``disable_fused_eval`` (each frame against the fused step within the
+   bf16 eval limits), ``pnnp_tpu_torch.trainer_led.main`` (each PSNR the
+   plain PSNR of the corrected input, and the correction moved it), and
+   ``Trainer.predict`` on a full mosaic (20 tiles of 512^2: bf16 timed,
+   median of 5; f32 on the card against f32 on the CPU on a 1024x1536
+   corner, to 1e-4 of the max); each run's SSIM launches by route;
+12. timings with CUDA events after warm-up: the fused eval step in bf16 and
    in f32 at the full frame (median per call, plus a torch.profiler
    breakdown by kernel and the device's idle share), each kernel route
    (mean over back-to-back launches, the two routes in turns) at the Sony
@@ -108,16 +127,23 @@ and no result line):
    the proxy NLL step at one 512^2 crop (d=1024, with a profile) and at the
    ladder's shape (d=256), each with its peak memory and forward FLOP bound.
 
+Phase 2 also holds the ``generic`` route at the sRGB frames of
+``rgb_quality`` (``SRGB_SONY``, ``SRGB_IMX686``), and phase 12 times it at
+the Sony one.
+
 Output: one ``timings`` JSON line, one ``kernels`` JSON line (a row per
-SSIM route: ``ssim`` is the ``hopper`` route of the main path,
-``ssim_generic`` the first CUDA version; ``launches`` sums the eval, the
-train, the PNNP, the four baseline and the two NF.yml runs,
-``launches_by_path`` keeps each), the ``nvidia-smi`` name/power-limit line, and last
+SSIM route: ``ssim`` is the ``hopper`` route of the main path, timed at the
+raw Sony frame; ``ssim_generic`` the first CUDA version, the route of
+``rgb_quality``, timed at the sRGB Sony frame; ``launches`` sums the eval,
+the train, the PNNP, the four baseline, the two NF.yml, the rgb, unfused,
+LED and predict runs, ``launches_by_path`` keeps each), the ``nvidia-smi``
+name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -140,10 +166,13 @@ BF16_FLOP_PER_S = 989e12  # dense, tensor cores
 TOL = 1e-4
 SONY, IMX686 = (1424, 2128, 4), (1736, 2312, 4)  # packed full frames [H, W, C]
 STRIP = 16  # the hopper route's shortest strip (csrc/ssim.cu MIN_STRIP)
+SRGB_SONY, SRGB_IMX686 = (2848, 4256, 3), (3472, 4624, 3)  # fast_isp's sRGB full frames
 KERNEL_SHAPES = [(7, 7, 4), (70, 96, 4), (71, 96, 4), (96, 131, 3),
                  (201, 140, 4), SONY, IMX686,
                  # strip edges, and widths one pixel into a warp's halo / the next warp
-                 (STRIP + 6, 121, 4), (STRIP + 7, 127, 4), (2 * STRIP + 5, 126, 4)]
+                 (STRIP + 6, 121, 4), (STRIP + 7, 127, 4), (2 * STRIP + 5, 126, 4),
+                 # rgb_quality's frames (the generic route at C = 3)
+                 SRGB_SONY, SRGB_IMX686]
 DRIFT = (1424, 256, 4)  # bright low-variance frame for the running-sum check
 MOSAIC_H, MOSAIC_W = 2848, 4256  # Sony A7S2 full frame, packed [1424, 2128, 4]
 SSIM_OPS_PER_WINDOW = 89  # 5 separable 7+7-tap sums (60) + the SSIM formula (29)
@@ -166,6 +195,12 @@ LADDER_SEEDS = "0,1,2"
 # (PERF.md, section 6).
 LADDER_ROW_12800_BAR = 0.063
 CDF_FLOP = 30  # per Gaussian-CDF term of the pixel NLL: the CDF and its bin difference
+BF16_EVAL_TOL = (1e-2, 1e-3)  # PSNR dB / SSIM: the bf16 eval limits (tests/test_torch_trainer.py)
+PREDICT_CORNER = (1024, 1536)  # f32 predict, card against CPU: 6 tiles of 512^2
+# the recipe A/B at full width (PNNP.yml's patch 512, batch 8, nf 32; the
+# tool's d 256), its budget cut; held to tests/test_ab_recipe.py's bars
+AB_ARGS = ["--patch", "512", "--batch", "8", "--nf", "32", "--d", "256",
+           "--proxy-steps", "1000", "--unet-steps", "200", "--chunk", "100"]
 
 
 def _structured(shape, seed):
@@ -831,12 +866,14 @@ def phase_timings(dev):
     # each route at the two full frames, in turns (hopper, generic, generic,
     # hopper), against its bound; the plain version at the Sony frame. The
     # kernels are timed on scratch allocated once (see _launcher).
-    kernel_us, bounds = {}, {}
-    for frame, shape in (("sony", SONY), ("imx686", IMX686)):
+    # The generic route also at the sRGB Sony frame of rgb_quality (C = 3).
+    kernel_us, bounds, plain_ms = {}, {}, {}
+    for frame, shape in (("sony", SONY), ("imx686", IMX686), ("sony_srgb", SRGB_SONY)):
         H, W, C = shape
         xf, yf = _to_dev(_structured(shape, 2), dev)
-        runs = {r: [] for r in K.ROUTES}
-        for route in ("hopper", "generic", "generic", "hopper"):
+        routes = _routes(C)
+        runs = {r: [] for r in routes}
+        for route in routes + routes[::-1]:
             runs[route].append(1e3 * _loop_ms(_launcher(K, xf, yf, C, route),
                                               warmup=5, iters=100))
         kernel_us[frame] = {r: statistics.mean(v) for r, v in runs.items()}
@@ -844,21 +881,27 @@ def phase_timings(dev):
         # the same through the allocating wrapper, host overhead included
         kernel_us[frame]["wrapper"] = {r: 1e3 * _loop_ms(
             lambda: K._ssim_call_sum(xf, yf, C, route=r), warmup=5, iters=100)
-            for r in K.ROUTES}
+            for r in routes}
         bytes_moved = 2 * xf.numel() * 4 + 8
         ops = (H - 6) * (W - 6) * C * SSIM_OPS_PER_WINDOW + xf.numel() * 3
         t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
         bounds[frame] = {"bound_ms": max(t_bytes, t_ops), "bytes": bytes_moved, "ops": ops,
                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        if frame == "sony":
-            plain_ms = _loop_ms(lambda: K.ssim_flat_plain(xf, yf, C), warmup=2, iters=10)
+        if frame != "imx686":
+            plain_ms[frame] = _loop_ms(lambda: K.ssim_flat_plain(xf, yf, C), warmup=2, iters=10)
         print(f"ssim at {frame} {list(shape)}: us by route {kernel_us[frame]} "
               f"(bound {bounds[frame]['bound_ms'] * 1e3:.1f} us)", flush=True)
-    sony = bounds["sony"]
+    # each route's row at the Sony frame of its path: hopper at the raw
+    # frame of the eval step, generic at the sRGB frame of rgb_quality
+    row_frame = {"hopper": ("sony", SONY), "generic": ("sony_srgb", SRGB_SONY)}
     rows = {route: {
-        "ms": kernel_us["sony"][route] / 1e3, "plain_ms": plain_ms,
-        "bound_ms": sony["bound_ms"], "bound_by": sony["bound_by"],
-        "bound_share": sony["bound_ms"] / (kernel_us["sony"][route] / 1e3),
+        "shape": list(row_frame[route][1]),
+        "ms": kernel_us[row_frame[route][0]][route] / 1e3,
+        "plain_ms": plain_ms[row_frame[route][0]],
+        "bound_ms": bounds[row_frame[route][0]]["bound_ms"],
+        "bound_by": bounds[row_frame[route][0]]["bound_by"],
+        "bound_share": (bounds[row_frame[route][0]]["bound_ms"]
+                        / (kernel_us[row_frame[route][0]][route] / 1e3)),
         # no single PyTorch call computes SSIM
         "library_ms": None,
     } for route in K.ROUTES}
@@ -866,7 +909,7 @@ def phase_timings(dev):
         "frame": [1, h, w, 4], "mpix_per_frame": mpix,
         "eval_step_ms": step_ms,
         "eval_mpix_s": {k: mpix / (v / 1e3) for k, v in step_ms.items()},
-        "ssim_us_by_route": kernel_us, "ssim_bounds": bounds,
+        "ssim_us_by_route": kernel_us, "ssim_bounds": bounds, "ssim_plain_ms": plain_ms,
         "eval_step_profile": profiles,
     }
     return rows, timings
@@ -2052,6 +2095,244 @@ def phase_noiseflow_timings(dev, keep):
                                        "split_ms": split}}
 
 
+# ------------------------------------------------------------ the eval's other paths
+class _Counted:
+    """The SSIM launches, in all and by route, and the trainer's log lines,
+    of exactly the run inside the block (counts set to 0 on entry, read on
+    exit, after a sync)."""
+
+    def __enter__(self):
+        import pnnp_tpu_torch.kernels.ssim as K
+        import pnnp_tpu_torch.trainer as T
+
+        self.K, self.T, self.lines, self._log = K, T, [], T.log
+        T.log = lambda s, *a, **k: (self.lines.append(str(s)), self._log(s, *a, **k))[1]
+        torch.cuda.synchronize()
+        K.launches = 0
+        K.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self.t0
+        self.launches = {"ssim": self.K.launches, "by_route": dict(self.K.launches_by_route)}
+        self.T.log = self._log
+
+
+def _eval_entry(entry, run, root, argv, **extra):
+    """One eval entry point (``trainer.main`` or ``trainer_led.main``) over the
+    fixture under ``root``, with ``extra`` runfile keys; returns (trainer,
+    metrics pkl, counts)."""
+    import yaml
+
+    yml = os.path.join(root, "run.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(dict(run, **extra), f)
+    pkl = os.path.join(root, "metrics", f"{run['model_name']}_metrics.pkl")
+    if os.path.exists(pkl):
+        os.remove(pkl)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        with _Counted() as c:
+            trainer = entry(["-f", yml] + argv)
+    finally:
+        os.chdir(cwd)
+    with open(pkl, "rb") as f:
+        metrics = pickle.load(f)
+    _check(len(metrics) == 2 and all(math.isfinite(v) for m in metrics.values() for v in m),
+           f"{extra or argv}: metrics {metrics}")
+    return trainer, metrics, c
+
+
+def _srgb_scores(dn, hr, wb, ccm):
+    """sRGB PSNR / SSIM of one frame with the plain versions, on the
+    tensors' device: fast_isp, the uint8 floor, psnr and the plain ssim."""
+    from pnnp_tpu_torch.ops import fast_isp, psnr, ssim
+
+    a, b = (torch.floor(fast_isp(x, wb=wb, ccm=ccm).clamp(0, 1) * 255.0) for x in (dn, hr))
+    return float(psnr(a, b)), float(ssim(a, b))
+
+
+def phase_eval_paths(dev):
+    """The eval's unfused and RGB side on a 2-scene 2848x4256 SID fixture at
+    nf=32 (the phase-3 runfile and seeded checkpoint): ``trainer.main --mode
+    eval`` with ``rgb_metrics`` (figures on), with ``disable_fused_eval``,
+    ``trainer_led.main``, and ``Trainer.predict`` on a full mosaic; each
+    run's SSIM launches by route. Returns (launches by path, what was
+    checked, the largest |kernel - plain| of the sRGB frame)."""
+    import yaml
+
+    import pnnp_tpu_torch.trainer as T
+    import pnnp_tpu_torch.trainer_led as LED
+    from pnnp_tpu_torch.data.fixtures import make_sid_fixture
+    from pnnp_tpu_torch.models import UNetSeeInDark, params_to_jax
+    from pnnp_tpu_torch.ops import illuminance_correct, psnr, raw2bayer, tiled_apply
+    from pnnp_tpu_torch.ops.metrics import rgb_quality
+    from pnnp_tpu_torch.train.checkpoint import save_checkpoint
+
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="pnnp_eval_paths_") as root:
+        make_sid_fixture(root, n_scenes=2, H=MOSAIC_H, W=MOSAIC_W)
+        run = _smoke_runfile(root)
+        seeded = UNetSeeInDark(nf=int(run["arch"]["nf"]),
+                               generator=torch.Generator().manual_seed(0))
+        save_checkpoint(os.path.join(run["fast_ckpt"], f"{run['model_name']}_best_model.ckpt"),
+                        params_to_jax(seeded.state_dict()), meta={"epoch": 0})
+
+        # --- rgb_metrics, figures on: per frame the raw SSIM (hopper) and
+        # the sRGB SSIM of the input and of the output (generic) ---------
+        tr, m_rgb, c = _eval_entry(T.main, run, root, ["--mode", "eval"], rgb_metrics=True)
+        launches["rgb"] = c.launches
+        _check(c.launches["by_route"] == {"hopper": 2, "generic": 4},
+               f"rgb eval: SSIM launches {c.launches}, not 1 hopper + 2 generic per frame")
+        _check(tr.rgb_metrics and tr.model.conv1_1.weight.dtype == torch.bfloat16,
+               "rgb eval did not serve bf16 with rgb_metrics")
+        batch = tr.dataset_eval[0]
+        name = batch["name"]
+        lr, hr = (torch.from_numpy(batch[k]).to(dev) for k in ("lr", "hr"))
+        dn = illuminance_correct(tr.eval_step(lr).clamp(0, 1), hr)[0]
+        hrc = hr[0].clamp(0, 1)
+        wb, ccm = tr._sample_wb_ccm(batch)
+        on_card = _srgb_scores(dn, hrc, wb, ccm)
+        on_cpu = _srgb_scores(dn.cpu(), hrc.cpu(), wb, ccm)
+        srgb_err = abs(m_rgb[name][1] - on_card[1])
+        _check(abs(m_rgb[name][0] - on_card[0]) < 1e-4 and srgb_err < TOL,
+               f"rgb eval frame 0: pkl {m_rgb[name]} vs plain on the card {on_card}")
+        _check(abs(on_cpu[0] - on_card[0]) < 1e-2 and abs(on_cpu[1] - on_card[1]) < TOL,
+               f"sRGB scores card {on_card} vs cpu {on_cpu}")
+        rgb_ms = _time_ms(lambda: rgb_quality(dn, hrc, wb, ccm), warmup=3, iters=10)
+        skipped = [ln for ln in c.lines if "sample figures skipped" in ln]
+        samples = os.path.join(run["result_dir"], f"samples-{run['model_name']}")
+        if importlib.util.find_spec("matplotlib") is None:
+            _check(len(skipped) == 1, f"figure skip logged {len(skipped)} times, not once")
+            figures = skipped[0]
+        else:
+            want = {f"{n}_{k}" for n in m_rgb for k in ("denoised.png", "epoch-1.jpg")}
+            _check(want <= set(os.listdir(samples)), f"figures {os.listdir(samples)}")
+            figures = sorted(want)
+        out["rgb"] = {"metrics": m_rgb, "wall_s": c.wall, "frame0_srgb_plain_card": on_card,
+                      "frame0_srgb_plain_cpu": on_cpu, "rgb_quality_ms": rgb_ms,
+                      "figures": figures}
+        print(f"rgb eval: 2 frames in {c.wall:.2f} s, launches {c.launches}; frame 0 sRGB "
+              f"{m_rgb[name]} (plain: card {on_card}, cpu {on_cpu}); rgb_quality "
+              f"{rgb_ms:.3f} ms per frame; figures: {figures}", flush=True)
+
+        # --- disable_fused_eval against the fused step --------------------
+        _, m_unf, c = _eval_entry(T.main, run, root, ["--mode", "eval", "--nofig"],
+                                  disable_fused_eval=True)
+        launches["unfused"] = c.launches
+        _check(c.launches["by_route"] == {"hopper": 2, "generic": 0},
+               f"unfused eval: SSIM launches {c.launches}")
+        gaps = []
+        for i in range(2):
+            b = tr.dataset_eval[i]
+            _, m = tr._fused_eval(torch.from_numpy(b["lr"]).to(dev),
+                                  torch.from_numpy(b["hr"]).to(dev),
+                                  float(b["ratio"][0]), ori=False, correct=True)
+            gaps.append((abs(m_unf[b["name"]][0] - float(m["psnr"])),
+                         abs(m_unf[b["name"]][1] - float(m["ssim"]))))
+        _check(all(g[0] < BF16_EVAL_TOL[0] and g[1] < BF16_EVAL_TOL[1] for g in gaps),
+               f"disable_fused_eval vs the fused step: |dPSNR|, |dSSIM| {gaps}")
+        out["unfused"] = {"metrics": m_unf, "gap_vs_fused": gaps, "wall_s": c.wall}
+        print(f"disable_fused_eval: launches {c.launches}, |unfused - fused| {gaps}", flush=True)
+
+        # --- trainer_led: the identity, corrected ---------------------------
+        led, m_led, c = _eval_entry(LED.main, run, root, ["--nofig"])
+        launches["led"] = c.launches
+        _check(c.launches["by_route"] == {"hopper": 2, "generic": 0},
+               f"LED eval: SSIM launches {c.launches}")
+        led_rows = []
+        for i in range(2):
+            b = led.dataset_eval[i]
+            lr_i, hr_i = (torch.from_numpy(b[k]).to(dev) for k in ("lr", "hr"))
+            tgt = hr_i.clamp(0, 1) * 255.0
+            corrected = float(psnr(illuminance_correct(lr_i.clamp(0, 1), hr_i) * 255.0, tgt))
+            plain = float(psnr(lr_i.clamp(0, 1) * 255.0, tgt))
+            led_rows.append((m_led[b["name"]][0], corrected, plain))
+        _check(all(abs(p - cor) < 1e-4 and abs(cor - raw) > 1e-3 for p, cor, raw in led_rows),
+               f"LED PSNR vs the corrected / plain input's: {led_rows}")
+        out["led"] = {"metrics": m_led, "psnr_corrected_plain": led_rows, "wall_s": c.wall}
+        print(f"trainer_led: launches {c.launches}, PSNR / corrected input / plain input "
+              f"{led_rows}", flush=True)
+
+        # --- Trainer.predict: a full mosaic, 20 tiles of 512^2 -------------
+        raw = np.load(os.path.join(root, "00000_00_short.npy")).astype(np.float32) - 512.0
+        with _Counted() as c:
+            pred = tr.predict(raw, name=None)
+        launches["predict"] = c.launches
+        _check(pred.shape == (MOSAIC_H // 2, MOSAIC_W // 2, 4) and np.isfinite(pred).all(),
+               f"predict: {pred.shape}")
+        predict_ms = _time_ms(lambda: tr.predict(raw, name=None), warmup=1, iters=5)
+        # its split: the tiles on the card (crop, 5 forwards of 4 tiles,
+        # merge) from a packed frame already there; the rest is the copies
+        # of the mosaic and of the output, and the pack
+        packed = raw2bayer(torch.from_numpy(raw + 512.0).to(dev), 16383.0, 512.0)
+        tiles_ms = _time_ms(lambda: tiled_apply(tr.eval_step, packed, 512, 64, tile_batch=4),
+                            warmup=1, iters=5)
+        del tr, led, packed
+        yml = os.path.join(root, "f32.yml")
+        with open(yml, "w") as f:
+            yaml.safe_dump(dict(run, disable_fast_path=True), f)
+        outs = {}
+        for d in ("cuda", "cpu"):
+            t = T.Trainer(yml, mode="eval", nofig=True, device=d)
+            outs[d] = t.predict(raw[:PREDICT_CORNER[0], :PREDICT_CORNER[1]], name=None)
+            del t
+        scale = float(np.abs(outs["cpu"]).max())
+        predict_err = float(np.abs(outs["cuda"] - outs["cpu"]).max()) / scale
+        _check(predict_err <= 1e-4, f"f32 predict card vs cpu: {predict_err} of the max")
+        out["predict"] = {"frame": [MOSAIC_H, MOSAIC_W], "tiles": 20, "bf16_ms": predict_ms,
+                          "device_tiles_ms": tiles_ms,
+                          "f32_corner": list(PREDICT_CORNER), "f32_card_vs_cpu": predict_err}
+        print(f"predict: {MOSAIC_H}x{MOSAIC_W} mosaic (20 tiles of 512^2) bf16 "
+              f"{predict_ms:.3f} ms (median of 5; tiles on the card {tiles_ms:.3f} ms); "
+              f"launches {c.launches}; f32 card vs cpu on "
+              f"{PREDICT_CORNER}: {predict_err:.2e} of the max", flush=True)
+    torch.cuda.empty_cache()
+    return launches, out, srgb_err
+
+
+def start_ab():
+    """``pnnp_tpu_torch/tools/ab_proxy_vs_physics.py`` at full width with its
+    budget cut (``AB_ARGS``), in a process of its own on the same card.
+    Returns (process, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pnnp_tpu_torch.tools.ab_proxy_vs_physics"] + AB_ARGS
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, time.perf_counter()
+
+
+def finish_ab(started):
+    """Wait for :func:`start_ab`'s run and hold it to tests/test_ab_recipe.py's
+    bars: 8 finite rows, the held-out ISO present, |mean delta| <= 0.3 dB,
+    worst >= -0.6, both arms 4 dB over the input at ratio 300, ISO >= 6400."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"A/B exited {proc.returncode}: {err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    timing = json.loads(err.strip().splitlines()[-1].split("[timing] ", 1)[1])
+    rows = res["rows"]
+    _check(len(rows) == 8 and any(r["heldout_iso"] for r in rows)
+           and all(math.isfinite(r[k]) for r in rows
+                   for k in ("input_psnr", "physics_psnr", "proxy_psnr", "delta")),
+           f"A/B rows {rows}")
+    deltas = [r["delta"] for r in rows]
+    _check(abs(sum(deltas) / len(deltas)) <= 0.3 and min(deltas) >= -0.6,
+           f"A/B deltas {deltas}")
+    noisy = [r for r in rows if r["ratio"] == 300 and r["iso"] >= 6400]
+    _check(noisy and all(r["physics_psnr"] >= r["input_psnr"] + 4.0
+                         and r["proxy_psnr"] >= r["input_psnr"] + 4.0 for r in noisy),
+           f"A/B arms do not denoise at ratio 300, ISO >= 6400: {noisy}")
+    print(f"A/B {AB_ARGS}: {wall:.1f} s, mean delta {res['mean_delta_db']:+.3f} dB, worst "
+          f"{res['worst_delta_db']:+.3f} (tests/test_ab_recipe.py's bars held); stages "
+          f"{timing}", flush=True)
+    return dict(res, args=AB_ARGS, wall_s=wall, timing=timing)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2074,14 +2355,18 @@ def main() -> int:
     train_launches, train_run, batch = phase_train_main_path(dev)
     step_check = phase_train_step_check(dev)
     proxy_checks = phase_proxy_checks(dev)
-    validate_nf = start_validate_nf()
+    # validate_nf and the reduced A/B run beside the ladder, each in a
+    # process of its own
+    validate_nf, ab = start_validate_nf(), start_ab()
     try:
         ladder = phase_iso_ladder(dev)
         validate_nf = finish_validate_nf(validate_nf)
+        ab = finish_ab(ab)
     finally:
-        if isinstance(validate_nf, tuple) and validate_nf[0].poll() is None:
-            validate_nf[0].kill()
-            validate_nf[0].wait()
+        for started in (validate_nf, ab):
+            if isinstance(started, tuple) and started[0].poll() is None:
+                started[0].kill()
+                started[0].wait()
     pnnp_launches, pnnp_runs, proxy_params = phase_pnnp_paths(dev)
     with tempfile.TemporaryDirectory(prefix="pnnp_baselines_") as base:
         base_launches, base_runs, keep = phase_baselines(dev, base)
@@ -2095,6 +2380,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     flow_card = flow_card_check(dev)
     print(f"NoiseFlow card vs cpu at {FLOW_CHECK}: {flow_card}", flush=True)
+    # after NoiseFlow: the f32 predict turns TF32 off for the process too
+    eval_launches, eval_paths, srgb_err = phase_eval_paths(dev)
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
     timings.update(train_main_path=train_run, train_step_check=step_check,
@@ -2102,19 +2389,21 @@ def main() -> int:
                    proxy=phase_proxy_timings(dev, batch, proxy_params),
                    baselines=dict(base_runs, **base_timings),
                    noiseflow=dict(flow_runs, card_vs_cpu=flow_card, validate_nf=validate_nf,
-                                  **flow_timings))
+                                  **flow_timings),
+                   eval_paths=eval_paths, ab_reduced=ab)
 
-    # one row per SSIM route: the main path's (hopper) and the first version;
-    # launches of each path's run (the eval run, the train run's, the PNNP
-    # run's, the baseline runs' and the NF.yml runs' eval legs) and their sum
+    # one row per SSIM route: the main path's (hopper) and the first version
+    # (generic, rgb_quality's route); launches of each path's run (the eval
+    # run, the train run's, the PNNP run's, the baseline runs' and the NF.yml
+    # runs' eval legs, the rgb, unfused, LED and predict runs) and their sum
     by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches,
-               **base_launches, **flow_launches}
+               **base_launches, **flow_launches, **eval_launches}
     kernels = [dict(
         name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
         replaces="pnnp_tpu/kernels/ssim.py:39",
         launches=sum(p["by_route"][route] for p in by_path.values()),
         launches_by_path={k: p["by_route"][route] for k, p in by_path.items()},
-        max_abs_err=max(max_err[route], main_err if route == "hopper" else 0.0),
+        max_abs_err=max(max_err[route], main_err if route == "hopper" else srgb_err),
         **rows[route]) for name, route in (("ssim", "hopper"), ("ssim_generic", "generic"))]
     print(json.dumps({"timings": timings}))
     print(json.dumps({"kernels": kernels}))

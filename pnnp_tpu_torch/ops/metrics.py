@@ -4,6 +4,9 @@ Counterparts of ``pnnp_tpu/ops/metrics.py`` (``psnr`` :16, ``ssim`` :42,
 ``ssim_sum`` :84). These are the CPU path of the eval step and the plain
 version that the CUDA SSIM kernel (``pnnp_tpu_torch/kernels/ssim.py``) is
 held against on the card. They run on any device.
+
+:func:`quality_assess` and :func:`rgb_quality` (:99-124 there) score with
+the kernel on a CUDA tensor and with :func:`ssim` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -71,3 +74,37 @@ def ssim_sum(
     channels): ``ssim(x, y) * (H-6) * (W-6) * C``."""
     n = (x.shape[0] - win_size + 1) * (x.shape[1] - win_size + 1) * x.shape[2]
     return ssim(x, y, data_range=data_range, win_size=win_size) * n
+
+
+def _ssim_on_device(x: torch.Tensor, y: torch.Tensor, data_range: float) -> torch.Tensor:
+    """Mean SSIM of an ``[H, W, C]`` pair: the CUDA kernel on the card, the
+    plain version on the CPU (the kernel module imports this one, so it is
+    imported here at call time)."""
+    from pnnp_tpu_torch.kernels.ssim import ssim_kernel
+
+    return ssim_kernel(x, y, data_range=data_range)
+
+
+def quality_assess(x: torch.Tensor, y: torch.Tensor, data_range: float = 255.0) -> dict:
+    """PSNR + SSIM dict for an HWC pair; ``x`` the estimate, ``y`` the
+    reference (reference: utils/visualization.py:26-33)."""
+    return {"PSNR": psnr(x, y, data_range), "SSIM": _ssim_on_device(x, y, data_range)}
+
+
+def rgb_quality(out4c: torch.Tensor, tgt4c: torch.Tensor, wb=None, ccm=None):
+    """sRGB-domain PSNR/SSIM of a packed-RGBG pair ``[h, w, 4]`` in [0, 1].
+
+    Both images go through :func:`pnnp_tpu_torch.ops.isp.fast_isp` (WB ->
+    demosaic -> CCM -> gamma, the device analog of the reference's
+    ``raw2rgb_rawpy``), are floored to uint8 levels like the reference's
+    scale_up (visualization.py:6-7) and scored at data_range 255: the
+    reference's disabled "RGB metrics" eval option (trainer_SID.py:272 +
+    visualization.py:57-63). Returns (psnr, ssim) as 0-d tensors on the
+    input's device; the SSIM of the ``[2h, 2w, 3]`` pair is the kernel's
+    ``generic`` route on the card.
+    """
+    from pnnp_tpu_torch.ops.isp import fast_isp
+
+    a = torch.floor(fast_isp(out4c, wb=wb, ccm=ccm).clamp(0, 1) * 255.0)
+    b = torch.floor(fast_isp(tgt4c, wb=wb, ccm=ccm).clamp(0, 1) * 255.0)
+    return psnr(a, b), _ssim_on_device(a, b, 255.0)

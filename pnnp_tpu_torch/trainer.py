@@ -27,19 +27,31 @@ Eval serves UNetSeeInDark in bf16 (f32 with ``disable_fast_path: true``)
 through one fused step: forward, clip, illuminance correction (not for the
 IMX686 datasets, as the reference's LRID trainer), PSNR and the CUDA SSIM
 kernel. In the train modes it serves a bf16 copy of the master weights,
-refreshed at each eval leg.
+refreshed at each eval leg. The unfused branch (the plain forward, then
+clip, correction, PSNR and the SSIM kernel on ``[H, W, 4]``, as
+``pnnp_tpu/trainer.py:721-768``) serves eval when the runfile sets
+``disable_fused_eval`` or ``rgb_metrics`` (the sRGB meters of the device ISP,
+:func:`~pnnp_tpu_torch.ops.metrics.rgb_quality`), and for
+:class:`~pnnp_tpu_torch.trainer_led.LEDTrainer`. Unlike JAX, which also
+takes it for ``disable_fast_path`` (and for any arch but the fast UNet),
+``disable_fast_path`` alone keeps the fused step here, in f32: both branches
+compute the same numbers (tests/test_torch_trainer.py,
+tests/test_torch_eval_rgb.py). With ``save_plot`` (no ``--nofig``) every
+eval frame at epoch < 0 and every ``dump`` frame renders the 3-panel JPG and
+the ``{name}_denoised.png`` through the device ISP, the figures drawn on the
+host by a 4-thread pool; without matplotlib the render is skipped, logged
+once per run. :meth:`Trainer.predict` is the reference's tiled full-frame
+inference.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-deep supervision (1.13), ``--int8`` serving
-(1.15), ``rgb_metrics`` (1.14) and :meth:`Trainer.predict` (1.14); the
-``Img_Dataset`` and ``Multi_*`` datasets raise ``KeyError`` naming the rest
-of 1.11. With ``save_plot`` the input meters are computed, but figure
-rendering (1.14) is skipped with one logged line.
+deep supervision (1.13) and ``--int8`` serving (1.15); the ``Img_Dataset``
+and ``Multi_*`` datasets raise ``KeyError`` naming the rest of 1.11.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import pickle
 import time
@@ -57,7 +69,9 @@ from pnnp_tpu_torch.models import (
     params_from_jax,
     params_to_jax,
 )
-from pnnp_tpu_torch.ops import illuminance_correct
+from pnnp_tpu_torch.kernels.ssim import ssim_kernel
+from pnnp_tpu_torch.ops import fast_isp, illuminance_correct, psnr, raw2bayer, tiled_apply
+from pnnp_tpu_torch.ops.metrics import rgb_quality
 from pnnp_tpu_torch.train import (
     CheckpointManager,
     build_lr_schedule,
@@ -74,9 +88,26 @@ from pnnp_tpu_torch.train import (
 from pnnp_tpu_torch.utils.device import resolve_device
 from pnnp_tpu_torch.utils.logging import AverageMeter, StepTimer, log
 
-_FIGURES_SKIPPED = ("figure rendering is not ported yet (ROADMAP 1.14: ISP); "
-                    "sample figures skipped")
 _TRAIN_MODES = ("train", "trainonly")
+
+
+def _render_sample(imgs, jpg_path, png_path):
+    """Build and save the 3-panel figure and the denoised PNG (thread-safe:
+    object-oriented matplotlib only, no pyplot state)."""
+    import matplotlib
+
+    matplotlib.use("Agg", force=False)
+    import matplotlib.image as mpimg
+    from matplotlib.figure import Figure
+
+    mpimg.imsave(png_path, np.clip(imgs[1], 0.0, 1.0))
+    fig = Figure(figsize=(15, 5))
+    axes = fig.subplots(1, 3)
+    for ax, img, title in zip(axes, imgs, ("noisy", "denoised", "gt")):
+        ax.imshow(np.clip(img, 0, 1))
+        ax.set_title(title)
+        ax.axis("off")
+    fig.savefig(jpg_path, bbox_inches="tight", dpi=60)
 
 
 class Parser:
@@ -98,6 +129,8 @@ class Parser:
 
 
 class Trainer:
+    _phone_eval_corrects = False  # IMX686 evals uncorrected (see _brightness_correct)
+
     def __init__(self, runfile: str, mode: Optional[str] = None, nofig: bool = False,
                  debug: bool = False, root_prefix: Optional[str] = None, seed: int = 1997,
                  int8: bool = False, device=None):
@@ -106,15 +139,16 @@ class Trainer:
         if int8:
             raise NotImplementedError(
                 "--int8 serving is not ported yet (ROADMAP 1.15)")
-        if self.args.get("rgb_metrics", False):
-            raise NotImplementedError(
-                "rgb_metrics needs the device ISP, not ported yet (ROADMAP 1.14)")
         self.device = resolve_device(device)
         self.dst = self.args["dst"]
         self.hyper = self.args["hyper"]
         self.arch = self.args["arch"]
         self.model_name = self.args["model_name"]
         self.save_plot = not nofig
+        self.rgb_metrics = bool(self.args.get("rgb_metrics", False))
+        self._plot_pool = None  # lazy thread pool for figure renders
+        self._plot_futures = []
+        self._figures_skip_logged = False
         self.debug = debug
         self.seed = seed
         self.training = self.mode in _TRAIN_MODES
@@ -183,7 +217,8 @@ class Trainer:
 
         # --- eval steps ----------------------------------------------------
         self.eval_step = make_eval_step(self.eval_model)
-        self._fused_eval = make_eval_metrics_step(self.eval_model)
+        self._fused_eval = (None if self.args.get("disable_fused_eval", False)
+                            else make_eval_metrics_step(self.eval_model))
 
         # --- meters --------------------------------------------------------
         self.train_psnr = AverageMeter("PSNR", ":2f")
@@ -464,15 +499,20 @@ class Trainer:
     def _brightness_correct(self, dst: dict) -> bool:
         # The reference's LRID trainer never calls IlluminanceCorrect in eval
         # (trainer_LRID.py:62 vs :195-319), so IMX686 evals stay uncorrected;
-        # only the SID/ELD eval corrects (trainer_SID.py:238).
-        if str(dst.get("dataset", "")).startswith("IMX686"):
+        # only the SID/ELD eval corrects (trainer_SID.py:238). trainer_LED
+        # does correct on the same data (trainer_LED.py:122): LEDTrainer sets
+        # _phone_eval_corrects.
+        if (str(dst.get("dataset", "")).startswith("IMX686")
+                and not self._phone_eval_corrects):
             return False
         return bool(self.args.get("brightness_correct", True))
 
     # ------------------------------------------------------------------
     def eval(self, epoch: int = -1):
         """Eval loop with the reference's metric/log contract
-        (trainer_SID.py:181-320), every metric computed on the device."""
+        (trainer_SID.py:181-320), every metric computed on the device: the
+        fused step, or the unfused branch (``disable_fused_eval``,
+        ``rgb_metrics``, :class:`~pnnp_tpu_torch.trainer_led.LEDTrainer`)."""
         assert self.dataset_eval is not None
         self._refresh_eval_model()
         for m in (self.eval_psnr, self.eval_ssim, self.eval_psnr_lr,
@@ -486,27 +526,56 @@ class Trainer:
 
         correct = self._brightness_correct(self.dst_eval) and epoch < 0
         ori = bool(self.dst_eval.get("ori", self.dst.get("ori", False)))
-        if self.save_plot and epoch < 0:
-            log(_FIGURES_SKIPPED)
+        fused = self._fused_eval is not None and not self.rgb_metrics
         loader = DataLoader(self.dataset_eval, batch_size=1, shuffle=False,
                             num_workers=0 if self.debug else 2)
         for k, batch in enumerate(loader):
             name = batch["name"][0] if isinstance(batch["name"], list) else batch["name"]
-            out = self._fused_eval(
-                self._to_device(batch["lr"]), self._to_device(batch["hr"]),
-                float(np.asarray(batch["ratio"]).reshape(-1)[0]),
-                ori=ori, correct=correct, with_inputs=self.save_plot,
-            )
-            m = out[1]
-            p, s = float(m["psnr"]), float(m["ssim"])
+            lr, hr = self._to_device(batch["lr"]), self._to_device(batch["hr"])
+            ratio = float(np.asarray(batch["ratio"]).reshape(-1)[0])
+            if fused:
+                out = self._fused_eval(lr, hr, ratio, ori=ori, correct=correct,
+                                       with_inputs=self.save_plot)
+                m = out[1]
+                p, s = float(m["psnr"]), float(m["ssim"])
+                if self.save_plot:
+                    p_in, s_in = float(m["psnr_in"]), float(m["ssim_in"])
+                    # panels from the step itself (ori-scaled, clipped)
+                    dn, lr = (t.reshape(hr.shape) for t in (out[0], out[2]))
+            else:
+                dn = self.eval_step(lr)
+                if ori:
+                    lr, dn = lr * ratio, dn * ratio
+                lr, dn = lr.clamp(0, 1), dn.clamp(0, 1)
+                if correct:
+                    dn = illuminance_correct(dn, hr)
+                tgt255 = hr[0].clamp(0, 1) * 255.0
+                p = float(psnr(dn[0] * 255.0, tgt255))
+                s = float(ssim_kernel(dn[0] * 255.0, tgt255))
+                if self.save_plot and not self.rgb_metrics:
+                    p_in = float(psnr(lr[0] * 255.0, tgt255))
+                    s_in = float(ssim_kernel(lr[0] * 255.0, tgt255))
             self.eval_psnr.update(p)
             self.eval_ssim.update(s)
             metrics[name] = [p, s]
             if self.save_plot:
-                self.eval_psnr_lr.update(float(m["psnr_in"]))
-                self.eval_ssim_lr.update(float(m["ssim_in"]))
-                self.eval_psnr_dn.update(p)
-                self.eval_ssim_dn.update(s)
+                # the reference's active path fills psnrs_lr/psnrs_dn with
+                # raw-domain numbers (trainer_SID.py:277,339 + visualization.py:
+                # 64-66); rgb_metrics scores them in sRGB through the device ISP
+                p_dn, s_dn = p, s
+                if self.rgb_metrics:
+                    hrc = hr[0].clamp(0, 1)
+                    wb, ccm = self._sample_wb_ccm(batch)
+                    p_in, s_in = (float(v) for v in rgb_quality(lr[0], hrc, wb, ccm))
+                    p_dn, s_dn = (float(v) for v in rgb_quality(dn[0], hrc, wb, ccm))
+                    if epoch < 0:
+                        metrics[name] = [p_dn, s_dn]
+                self.eval_psnr_lr.update(p_in)
+                self.eval_ssim_lr.update(s_in)
+                self.eval_psnr_dn.update(p_dn)
+                self.eval_ssim_dn.update(s_dn)
+                if epoch < 0:
+                    self._plot_sample(lr[0], dn[0], hr[0], batch, name, epoch)
             log(f"[{k + 1}/{len(loader)}] {name}: PSNR={p:.2f} SSIM={s:.4f}")
 
         if not self.save_plot:
@@ -520,11 +589,57 @@ class Trainer:
         if epoch < 0:
             with open(metrics_path, "wb") as f:
                 pickle.dump(metrics, f)
+        self._drain_plots()
+
+    @staticmethod
+    def _sample_wb_ccm(batch):
+        """Per-sample WB gains and CCM of a batch-of-1 eval batch."""
+        wb = np.asarray(batch.get("wb", np.array([2.0, 1.0, 1.6, 1.0])), np.float32)
+        if wb.ndim > 1:
+            wb = wb[0]
+        ccm = batch.get("ccm")
+        if ccm is not None:
+            ccm = np.asarray(ccm, np.float32).reshape(-1, 3, 3)[0]
+        return wb, ccm
+
+    def _plot_sample(self, lr, dn, hr, batch, name, epoch):
+        """3-panel comparison and the denoised PNG (the reference's contract,
+        visualization.py:90-91), ``[h, w, 4]`` panels on the device. The
+        device ISP runs inline; the matplotlib figure and the encodes run in
+        a 4-thread pool (the reference uses a process pool for the same
+        reason, trainer_SID.py:194, 273-279), drained by
+        :meth:`_drain_plots`. Without matplotlib nothing is rendered, as in
+        JAX, and the skip is logged once per run."""
+        if importlib.util.find_spec("matplotlib") is None:
+            if not self._figures_skip_logged:
+                log("matplotlib is not installed: sample figures skipped")
+                self._figures_skip_logged = True
+            return
+        wb, ccm = self._sample_wb_ccm(batch)
+        imgs = [fast_isp(x, wb=wb, ccm=ccm).cpu().numpy() for x in (lr, dn, hr)]
+        jpg = os.path.join(self.sample_dir, f"{name}_epoch{epoch}.jpg")
+        png = os.path.join(self.sample_dir, f"{name}_denoised.png")
+        if self._plot_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._plot_pool = ThreadPoolExecutor(max_workers=4,
+                                                 thread_name_prefix="figrender")
+        self._plot_futures.append(self._plot_pool.submit(_render_sample, imgs, jpg, png))
+
+    def _drain_plots(self):
+        """Wait for pending figure renders; a failed render is logged as a
+        warning and does not fail the eval."""
+        futures, self._plot_futures = self._plot_futures, []
+        for f in futures:
+            err = f.exception()
+            if err is not None:
+                log(f"WARNING: figure render failed: {err!r}")
 
     # ------------------------------------------------------------------
     def test(self, out_dir: Optional[str] = None):
-        """Denoise the test split and save outputs as .npy, the reference's
-        ``test`` mode (trainer_SID.py:362-420)."""
+        """Denoise the test split and save outputs as .npy (and, with
+        ``save_plot``, the sample figures), the reference's ``test`` mode
+        (trainer_SID.py:362-420)."""
         dst = self.dst_test or self.dst_eval
         assert dst is not None, "no dst_test/dst_eval block in runfile"
         dataset = build_dataset(dict(dst, mode="eval"), seed=self.seed)
@@ -533,16 +648,16 @@ class Trainer:
         os.makedirs(out_dir, exist_ok=True)
         correct = self._brightness_correct(dst)
         ori = bool(dst.get("ori", self.dst.get("ori", False)))
-        if self.save_plot:
-            log(_FIGURES_SKIPPED)
 
         def dump_split():
             loader = DataLoader(dataset, batch_size=1, shuffle=False,
                                 num_workers=0)
             for k, batch in enumerate(loader):
-                dn = self.eval_step(self._to_device(batch["lr"]))
+                lr = self._to_device(batch["lr"])
+                dn = self.eval_step(lr)
                 if ori and "ratio" in batch:  # brighten before clamp
-                    dn = dn * self._to_device(batch["ratio"]).reshape(-1, 1, 1, 1)
+                    r = self._to_device(batch["ratio"]).reshape(-1, 1, 1, 1)
+                    lr, dn = lr * r, dn * r
                 dn = dn.clamp(0, 1)
                 # the reference's output pass corrects against the GT before
                 # saving (trainer_SID.py:396-397)
@@ -550,6 +665,9 @@ class Trainer:
                     dn = illuminance_correct(dn, self._to_device(batch["hr"]))
                 name = batch["name"][0] if isinstance(batch["name"], list) else str(batch["name"])
                 np.save(os.path.join(out_dir, f"{name}_dn.npy"), dn[0].cpu().numpy())
+                if self.save_plot:
+                    self._plot_sample(lr.clamp(0, 1)[0], dn[0],
+                                      self._to_device(batch["hr"])[0], batch, name, -1)
                 log(f"[test {k + 1}/{len(loader)}] saved {name}")
 
         # ratio-split datasets (SID) expose only one split at a time; walk
@@ -561,13 +679,27 @@ class Trainer:
                 dump_split()
         else:
             dump_split()
+        self._drain_plots()
 
     def predict(self, raw_mosaic: np.ndarray, name: str | None = "ds",
                 patch_size: int = 512, base: int = 64):
-        """Tiled full-frame inference (reference: trainer_SID.py:345-360)."""
-        raise NotImplementedError(
-            "predict needs the tiled apply of ops/tiling.py, not ported yet "
-            "(ROADMAP 1.14)")
+        """Memory-bounded tiled full-frame inference on a black-subtracted
+        mosaic ``[H, W]``: packed ``raw + bl`` (normalised by the runfile's
+        ``wp``/``bl``), tiles of ``patch_size`` with a ``base/2`` halo, 4
+        tiles per forward, the denoised RGBG ``[H/2, W/2, 4]`` returned as
+        numpy and saved as ``{name}.npy`` unless ``name`` is None
+        (reference: trainer_SID.py:345-360). The mosaic is packed on the
+        device (``raw2bayer``, the arithmetic of the JAX package's host
+        ``pack_raw_np``)."""
+        bl = self.dst.get("bl", 512)
+        raw = self._to_device(np.asarray(raw_mosaic, np.float32))
+        packed = raw2bayer(raw + bl, self.dst.get("wp", 16383), bl)
+        self._refresh_eval_model()
+        out = tiled_apply(self.eval_step, packed, patch_size, base, tile_batch=4)
+        out = out.cpu().numpy()
+        if name:
+            np.save(f"{name}.npy", out)
+        return out
 
 
 def eval_sweep(trainer, ds, ratios):

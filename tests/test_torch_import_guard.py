@@ -54,7 +54,10 @@ def test_no_forbidden_import_in_sources():
             "pnnp_tpu_torch/physics/hbr.py", "pnnp_tpu_torch/models/noise_flow.py",
             "pnnp_tpu_torch/models/flows/base.py", "pnnp_tpu_torch/models/flows/sdn.py",
             "pnnp_tpu_torch/models/flows/conv1x1.py", "pnnp_tpu_torch/models/flows/coupling.py",
-            "pnnp_tpu_torch/tools/validate_nf.py"} <= names
+            "pnnp_tpu_torch/tools/validate_nf.py", "pnnp_tpu_torch/trainer_led.py",
+            "pnnp_tpu_torch/ops/isp.py", "pnnp_tpu_torch/ops/tiling.py",
+            "pnnp_tpu_torch/tools/ab_proxy_vs_physics.py",
+            "pnnp_tpu_torch/utils/profiling.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert not bad, bad
@@ -70,7 +73,10 @@ def test_importing_the_port_loads_no_forbidden_module():
         "import pnnp_tpu_torch.data.phone, pnnp_tpu_torch.data.infos\n"
         "import pnnp_tpu_torch.physics.hbr, pnnp_tpu_torch.physics.noise\n"
         "import pnnp_tpu_torch.models.noise_flow, pnnp_tpu_torch.models.flows\n"
-        "import pnnp_tpu_torch.tools.validate_nf\n"
+        "import pnnp_tpu_torch.tools.validate_nf, pnnp_tpu_torch.trainer_led\n"
+        "import pnnp_tpu_torch.tools.ab_proxy_vs_physics, pnnp_tpu_torch.ops.isp\n"
+        "import pnnp_tpu_torch.utils.profiling, pnnp_tpu_torch.utils.debugger\n"
+        "import pnnp_tpu_torch.utils.video\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
         "assert {'pnnp_tpu_torch.trainer', 'pnnp_tpu_torch.data.phone',\n"
@@ -124,6 +130,16 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         validate_nf(["--steps", "1"])
+    from pnnp_tpu_torch.tools.ab_proxy_vs_physics import main as ab
+    from pnnp_tpu_torch.trainer_led import LEDTrainer
+    from pnnp_tpu_torch.trainer_led import main as led_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ab(["--proxy-steps", "1", "--unet-steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LEDTrainer(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        led_main(["-f", path])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:1")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -149,7 +149,8 @@ def test_eval_bf16_matches_jax(slice_setup, monkeypatch):
 
 @pytest.mark.parametrize("extra,kw,item", [
     ({}, {"int8": True}, "1.15"),
-    ({"rgb_metrics": True}, {}, "1.14"),
+    ({"mode": "train", "arch": {"name": "UNetSeeInDark", "nf": 4, "use_dpsv": True}},
+     {}, "1.13"),
 ])
 def test_unported_modes_raise(tmp_path, monkeypatch, extra, kw, item):
     monkeypatch.chdir(tmp_path)
@@ -161,9 +162,12 @@ def test_unported_modes_raise(tmp_path, monkeypatch, extra, kw, item):
 
 
 def test_predict_raises(tmp_path, monkeypatch):
+    """A frame smaller than the tile stride (patch_size - base) raises, as
+    the JAX ``eval_crop`` does; tests/test_torch_tiling.py holds predict
+    itself against JAX."""
     monkeypatch.chdir(tmp_path)
     make_sid_fixture(tmp_path, n_scenes=2, H=32, W=48)
     path = _write_runfile(tmp_path, dict(make_sid_runfile(tmp_path), mode="eval"))
     t = Trainer(path, device="cpu", nofig=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.14"):
+    with pytest.raises(ValueError, match="smaller than the tile stride"):
         t.predict(np.zeros((32, 48), np.float32))
