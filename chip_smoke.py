@@ -127,6 +127,27 @@ and no result line):
    the proxy NLL step at one 512^2 crop (d=1024, with a profile) and at the
    ladder's shape (d=256), each with its peak memory and forward FLOP bound.
 
+13. the packed forms and the W8A8 path: the hybrid packed forward
+   in f32 (TF32 off) against the NCHW UNet on the card (1e-5 of the max);
+   the int8 convolutions' int32 accumulators bit-equal card against CPU at
+   every quantizable layer's channel counts (nf=32; conv9_1's K = 585); the
+   int8 forward card against CPU on the same qparams (f32);
+   ``pnnp_tpu_torch/tools/validate_int8.py`` at its default budget beside
+   the ISO ladder (disjoint calibration at pct 99.95 and 100, then the
+   trainer's from-eval x3 at 99.95); ``trainer.main --mode eval --int8``
+   with the net it trained, over a 5-scene 2848x4256 SID fixture (3
+   calibration frames, the first 2 served bf16; 3 served int8; every frame
+   within 0.5 dB / 0.05 SSIM of the bf16 fused step, while the seeded init
+   scores more than 0.5 dB away; SSIM launches under ``int8``); the eval
+   sweep's pace with the loader workers pre-packing against the card
+   packing, in turns; ``--mode train`` for one epoch through the packed
+   step (launches under ``packed_train``); and the same-call A/Bs that set
+   the defaults: the bf16 fused eval step through the UNet in NCHW memory,
+   in ``channels_last`` memory (the bf16 default) and the hybrid packed form at
+   both frames, with the W8A8 step beside them; the bf16 train step at 8 x
+   512^2 ``pgrq`` through the same three; the f32 eval and train steps in
+   NCHW against ``channels_last``.
+
 Phase 2 also holds the ``generic`` route at the sRGB frames of
 ``rgb_quality`` (``SRGB_SONY``, ``SRGB_IMX686``), and phase 12 times it at
 the Sony one.
@@ -136,7 +157,8 @@ SSIM route: ``ssim`` is the ``hopper`` route of the main path, timed at the
 raw Sony frame; ``ssim_generic`` the first CUDA version, the route of
 ``rgb_quality``, timed at the sRGB Sony frame; ``launches`` sums the eval,
 the train, the PNNP, the four baseline, the two NF.yml, the rgb, unfused,
-LED and predict runs, ``launches_by_path`` keeps each), the ``nvidia-smi``
+LED, predict, int8 and packed-train runs, ``launches_by_path`` keeps each),
+the ``nvidia-smi``
 name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
@@ -149,6 +171,7 @@ import math
 import os
 import re
 import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2120,10 +2143,10 @@ class _Counted:
         self.T.log = self._log
 
 
-def _eval_entry(entry, run, root, argv, **extra):
+def _eval_entry(entry, run, root, argv, frames=2, **extra):
     """One eval entry point (``trainer.main`` or ``trainer_led.main``) over the
-    fixture under ``root``, with ``extra`` runfile keys; returns (trainer,
-    metrics pkl, counts)."""
+    fixture under ``root`` (``frames`` eval frames), with ``extra`` runfile
+    keys; returns (trainer, metrics pkl, counts)."""
     import yaml
 
     yml = os.path.join(root, "run.yml")
@@ -2141,7 +2164,8 @@ def _eval_entry(entry, run, root, argv, **extra):
         os.chdir(cwd)
     with open(pkl, "rb") as f:
         metrics = pickle.load(f)
-    _check(len(metrics) == 2 and all(math.isfinite(v) for m in metrics.values() for v in m),
+    _check(len(metrics) == frames
+           and all(math.isfinite(v) for m in metrics.values() for v in m),
            f"{extra or argv}: metrics {metrics}")
     return trainer, metrics, c
 
@@ -2333,6 +2357,430 @@ def finish_ab(started):
     return dict(res, args=AB_ARGS, wall_s=wall, timing=timing)
 
 
+# ------------------------------------------------------------ packed forms, int8
+INT8_SCENES = 5  # --int8 eval: 3 calibration frames (2 served bf16), 2 more after them
+INT8_PSNR_TOL, INT8_SSIM_TOL = 0.5, 0.05  # int8 vs bf16 (tests/test_unet_s2d_int8.py:137)
+INT8_CROP = (24, 40)  # the int8 op's card-vs-CPU check, per layer
+HYBRID_CHECK = (512, 768)  # the hybrid f32 forward against the NCHW one on the card
+AB_SPREAD = 0.03  # call-to-call spread of the eval step (PERF.md section 7)
+VALIDATE_INT8_ARGS = ["--pct", "99.95,100"]  # the tool's default budget: 2000 steps, 8 x 256^2
+
+
+def phase_packed_checks(dev):
+    """The packed forms and the int8 op on the card: the hybrid packed
+    forward in f32 (TF32 off) against the NCHW UNet on the card, to 1e-5 of
+    the max; the int8 convolutions' int32 accumulators bit-equal to the
+    CPU's at the channel counts of every quantizable layer (nf=32, real
+    quantized kernels; conv9_1's up half K = 585); the int8 forward on the
+    card against the CPU with the same qparams, in f32 (flipped codes
+    counted, the output to 1e-3 of its norm)."""
+    import pnnp_tpu_torch.models.unet_s2d_int8 as PI
+    import pnnp_tpu_torch.ops.int8conv as IC
+    from pnnp_tpu_torch.models import UNetSeeInDark
+    from pnnp_tpu_torch.models.unet_s2d import (
+        d2s,
+        s2d,
+        transform_params_hybrid,
+        unet_hybrid_forward_packed,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(3)).to(dev)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.mul_(5.0)  # off the tiny init, as the JAX tests
+        x = torch.rand((1, 4) + HYBRID_CHECK, generator=torch.Generator().manual_seed(4)) * 0.5
+        x = x.to(dev)
+        ref = net(x)
+        got = d2s(unet_hybrid_forward_packed(transform_params_hybrid(net, torch.float32), s2d(x),
+                                             dtype=torch.float32))
+    hybrid_err = float((got - ref).abs().max() / ref.abs().max())
+    _check(hybrid_err <= 1e-5, f"hybrid f32 forward vs NCHW on the card: {hybrid_err} of the max")
+
+    # real quantized kernels of every quantizable layer (QUANT_LAYERS and
+    # OPTIONAL_QUANT), calibrated on a small frame on the CPU
+    net_c = net.cpu()
+    g1 = s2d(torch.rand((1, 4, 64, 96), generator=torch.Generator().manual_seed(5)) * 0.5)
+    tp = transform_params_hybrid(net_c, torch.float32)
+    qp = PI.quantize_params_int8(tp, PI.calibrate_act_scales(tp, [g1], torch.float32, pct=99.95),
+                                 quant=PI.QUANT_LAYERS + PI.OPTIONAL_QUANT)
+    layers = {}
+    for name, layer in qp["layers"].items():
+        kq = layer["kq"]
+        transpose = name.startswith("upv")
+        c = kq.shape[0] if transpose else kq.shape[1]
+        xq = torch.randint(-127, 128, (1, c) + INT8_CROP, dtype=torch.int8,
+                           generator=torch.Generator().manual_seed(c))
+        op = IC.conv_transpose2x2_int8 if transpose else IC.conv3x3_int8
+        want = op(xq, kq)
+        got_q = op(xq.to(dev), kq.to(dev))
+        torch.cuda.synchronize()
+        _check(torch.equal(got_q.cpu(), want), f"int8 {name} {tuple(kq.shape)}: card != cpu")
+        layers[name] = list(kq.shape)
+    k585 = [n for n, s in layers.items() if s[1] * 9 == 585]
+    _check(k585 == ["conv9_1u"], f"no K = 585 layer among {layers}")
+    # why the int8 op is an implicit GEMM: eager conv2d on int8 CUDA tensors
+    k12 = qp["layers"]["conv1_2"]["kq"].to(dev)
+    x12 = torch.ones((1, k12.shape[1]) + INT8_CROP, dtype=torch.int8, device=dev)
+    try:
+        y = torch.nn.functional.conv2d(x12, k12, padding=1)
+        torch.cuda.synchronize()
+        native = f"ran, output {y.dtype} (no int32 accumulators)"
+    except (RuntimeError, NotImplementedError) as e:
+        native = f"refused: {str(e).splitlines()[0][:160]}"
+
+    trace_c, trace_g = [], []
+    qp_d = PI.quantize_params_int8(tp, PI.calibrate_act_scales(tp, [g1], torch.float32,
+                                                               pct=99.95))
+    with torch.no_grad():
+        want = PI._walk(tp, g1, torch.float32, qparams=qp_d, trace=trace_c)
+        to = lambda tree: {n: {k: v.to(dev) for k, v in leaf.items()} for n, leaf in tree.items()}
+        got = PI._walk(to(tp), g1.to(dev), torch.float32,
+                       qparams={"act_scale": qp_d["act_scale"], "layers": to(qp_d["layers"])},
+                       trace=trace_g)
+    flipped = sum(int((a.cpu() != b).sum()) for (_, a), (_, b) in zip(trace_g, trace_c))
+    total = sum(b.numel() for _, b in trace_c)
+    int8_err = float((got.cpu() - want).norm() / want.norm())
+    _check(flipped <= 1e-3 * total and int8_err <= 1e-3,
+           f"int8 forward card vs cpu: {int8_err} of the norm, {flipped}/{total} codes flipped")
+    print(f"packed checks: eager int8 conv2d on the card {native}", flush=True)
+    print(f"packed checks: hybrid f32 vs NCHW on the card {hybrid_err:.2e} of the max "
+          f"({list(HYBRID_CHECK)}, nf=32); int8 op bit-exact card vs cpu at {len(layers)} "
+          f"layers {layers} on {list(INT8_CROP)}; int8 forward card vs cpu (f32) "
+          f"{int8_err:.2e} of the norm, {flipped}/{total} codes flipped", flush=True)
+    return {"eager_int8_conv2d": native,
+            "hybrid_f32_vs_nchw_of_max": hybrid_err, "int8_op_bit_exact_layers": layers,
+            "int8_forward_card_vs_cpu": int8_err, "int8_codes_flipped": [flipped, total]}
+
+
+class _Prepacked:
+    """An eval data set whose frames come pre-packed on the host
+    (``pack_frame_np``: %16 reflect pad + s2d) by the loader worker that
+    loads them: the host arm of the sweep-pace A/B."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        from pnnp_tpu_torch.models.unet_s2d import pack_frame_np
+
+        item = self.ds[i]
+        item["lr"] = pack_frame_np(item["lr"])
+        return item
+
+
+def _sweep_ms(trainer, ds, workers):
+    """ms per frame of the fused eval sweep's loop over ``ds``: the loader
+    (``workers`` processes), the frames to the card, the trainer's fused
+    bf16 step, each frame's metrics read back."""
+    from pnnp_tpu_torch.data import DataLoader
+
+    loader = DataLoader(ds, batch_size=1, shuffle=False, num_workers=workers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in loader:
+        lr, hr = trainer._to_device(batch["lr"]), trainer._to_device(batch["hr"])
+        _, m = trainer._fused_eval(lr, hr, float(np.asarray(batch["ratio"]).reshape(-1)[0]))
+        float(m["psnr"])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / len(ds)
+
+
+def phase_int8_eval(dev, ckpt):
+    """``trainer.main --mode eval --int8`` on a 5-scene 2848x4256 SID fixture
+    (ELD.yml's Sony values) with ``ckpt``, the nf=32 net that
+    ``validate_int8`` trained in this run: the first 3 frames calibrate (the
+    first 2 served bf16), frames 3-5 are served int8; every frame's PSNR /
+    SSIM held to the bf16 fused step's on the same frame, and the bf16 PSNR
+    shown to move by more than that bar when the trained weights give way
+    to the seeded init. Then the eval sweep's pace with the loader workers
+    pre-packing the frames and with the card packing them, in turns; then
+    ``--mode train`` for one epoch through the packed step on the same
+    fixture. Returns (launches by path, what was checked)."""
+    import pnnp_tpu_torch.trainer as T
+    from pnnp_tpu_torch.data.fixtures import make_sid_fixture, place_eval_split
+    from pnnp_tpu_torch.models import UNetSeeInDark, params_to_jax
+    from pnnp_tpu_torch.train import TrainStep
+    from pnnp_tpu_torch.train.steps import make_eval_metrics_step
+
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="pnnp_int8_") as root:
+        infos = make_sid_fixture(root, n_scenes=INT8_SCENES, H=MOSAIC_H, W=MOSAIC_W)
+        run = _smoke_runfile(root)
+        os.makedirs(run["fast_ckpt"], exist_ok=True)
+        shutil.copy(ckpt, os.path.join(run["fast_ckpt"], f"{run['model_name']}_best_model.ckpt"))
+
+        served = []
+        real = T.Trainer._int8_eval_step
+
+        def counted(self, lr):
+            step = real(self, lr)
+            served.append(step is not None)
+            return step
+
+        T.Trainer._int8_eval_step = counted
+        try:
+            tr, m8, c = _eval_entry(T.main, run, root, ["--mode", "eval", "--nofig", "--int8"],
+                                    frames=INT8_SCENES)
+        finally:
+            T.Trainer._int8_eval_step = real
+        launches["int8"] = c.launches
+        cal = [ln for ln in c.lines if ln.startswith("int8: calibrated on 3 eval frames")]
+        _check(served == [False, False] + [True] * (INT8_SCENES - 2) and len(cal) == 1
+               and tr._int8_cache["step"] is not None,
+               f"--int8: served int8 {served}, calibration lines {cal}")
+        _check(c.launches["by_route"] == {"hopper": INT8_SCENES, "generic": 0},
+               f"--int8 eval: SSIM launches {c.launches}")
+        seeded = make_eval_metrics_step(UNetSeeInDark(
+            nf=32, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).to(dev).eval())
+        gaps, moved = {}, {}
+        for i in range(INT8_SCENES):
+            b = tr.dataset_eval[i]
+            args = (torch.from_numpy(b["lr"]).to(dev), torch.from_numpy(b["hr"]).to(dev),
+                    float(b["ratio"][0]))
+            _, m = tr._fused_eval(*args, ori=False, correct=True)
+            _, m0 = seeded(*args, ori=False, correct=True)
+            gaps[b["name"]] = (m8[b["name"]][0] - float(m["psnr"]),
+                               m8[b["name"]][1] - float(m["ssim"]))
+            moved[b["name"]] = float(m["psnr"]) - float(m0["psnr"])
+        _check(all(abs(p) < INT8_PSNR_TOL and abs(s) < INT8_SSIM_TOL for p, s in gaps.values()),
+               f"--int8 vs bf16 per frame (dPSNR, dSSIM): {gaps}")
+        # the bar can fail: the served net's PSNR depends on its weights
+        _check(all(abs(d) > INT8_PSNR_TOL for d in moved.values()),
+               f"--int8: trained minus seeded-init bf16 PSNR {moved}")
+        out["int8_eval"] = {"metrics": m8, "served_int8": served, "int8_minus_bf16": gaps,
+                            "trained_minus_seeded_bf16": moved, "wall_s": c.wall, "log": cal}
+        print(f"--int8 eval: {INT8_SCENES} frames in {c.wall:.2f} s, served int8 {served}, "
+              f"launches {c.launches}; int8 - bf16 per frame {gaps}; bf16 PSNR trained - "
+              f"seeded init {moved}", flush=True)
+        del seeded
+
+        # --- the eval sweep's pace: host pre-pack against the card ---------
+        tr.dataset_eval.change_eval_ratio(100)
+        arms = {"card": (tr.dataset_eval, 2), "host": (_Prepacked(tr.dataset_eval), 3)}
+        pace = {a: [] for a in arms}
+        for a in ("card", "host", "host", "card"):
+            pace[a].append(_sweep_ms(tr, *arms[a]))
+        out["sweep_pace_ms_per_frame"] = dict(pace, frames=INT8_SCENES)
+        print(f"eval sweep pace, ms per frame over {INT8_SCENES} frames (card pack, "
+              f"2 workers / host pre-pack, 3 workers): {pace}", flush=True)
+
+        # --- one --mode train epoch through the packed step ----------------
+        place_eval_split(root, infos, 250)
+        run_t = _train_runfile(root)
+        run_t["hyper"]["stop_epoch"] = 1
+        losses, packed_steps = [], []
+        call = TrainStep.__call__
+
+        def step_spy(self, model, opt, batch, gen, epoch):
+            packed_steps.append(self.packed)
+            m = call(self, model, opt, batch, gen, epoch)
+            losses.append(float(m["loss"]))
+            return m
+
+        TrainStep.__call__, T.Trainer.packed_step = step_spy, True
+        try:
+            tt, mt, c = _eval_entry(T.main, run_t, root, ["--mode", "train", "--nofig"],
+                                    frames=INT8_SCENES)
+        finally:
+            TrainStep.__call__, T.Trainer.packed_step = call, False
+        launches["packed_train"] = c.launches
+        _check("aborted by RuntimeError" not in "\n".join(c.lines), "a packed epoch aborted")
+        _check(tt._use_packed and packed_steps == [True] * INT8_SCENES
+               and all(math.isfinite(x) for x in losses),
+               f"packed train: steps {packed_steps}, losses {losses}")
+        init = params_to_jax(UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(
+            tt.seed)).state_dict())
+        now = params_to_jax(tt.model.state_dict())
+        moved = max(float(np.abs(now[n][k] - init[n][k]).max()) for n in init for k in init[n])
+        _check(moved > 0.1 * TRAIN_LR, f"packed train: params moved by {moved}")
+        _check(c.launches["by_route"]["hopper"] == c.launches["ssim"] == 2 * INT8_SCENES,
+               f"packed train: SSIM launches {c.launches}")
+        out["packed_train"] = {"losses": losses, "params_moved": moved, "wall_s": c.wall,
+                               "epoch_lines": [ln for ln in c.lines if ": loss ok," in ln]}
+        print(f"packed train: --mode train, {len(losses)} packed steps + {2 * INT8_SCENES} eval "
+              f"frames in {c.wall:.2f} s; losses {[round(x, 5) for x in losses]}; params moved "
+              f"by up to {moved:.2e}; launches {c.launches}", flush=True)
+        del tr, tt
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _in_turns(arms, fn, order=None):
+    """``fn(arm)`` for each arm in turns (a, b, ..., ..., b, a); per arm the
+    list of its two readings and their mean."""
+    runs = {a: [] for a in arms}
+    for a in (order or list(arms) + list(arms)[::-1]):
+        runs[a].append(fn(a))
+    return {a: {"runs": v, "mean": statistics.mean(v)} for a, v in runs.items()}
+
+
+# the parameter memory of the A/B's module-forward arms
+_ARM_FORMAT = {"nchw": torch.contiguous_format, "nchw_cl": torch.channels_last,
+               "f32_nchw": torch.contiguous_format, "f32_cl": torch.channels_last}
+
+
+def phase_packed_timings(dev, batch):
+    """The same-call A/Bs that set the port's packed and memory-format
+    defaults, and the int8 eval step: the bf16 fused eval step at the Sony
+    and IMX686 frames through the UNet in NCHW memory, in ``channels_last``
+    memory (the steps' bf16 default) and the hybrid packed form (median of 10 after 3
+    warm-ups each, arms in turns, a profile of each), the W8A8 step
+    (calibrated on the frame itself, pct 99.95); the bf16 train step at
+    8 x 512^2 ``pgrq`` on the main path's batch through the same three forms
+    (in turns, split, profiled). Beside them the f32 eval and train steps in
+    NCHW against ``channels_last`` memory."""
+    import pnnp_tpu_torch.models.unet_s2d_int8 as PI
+    from pnnp_tpu_torch.models import UNetSeeInDark
+    from pnnp_tpu_torch.models.unet_s2d import s2d
+    from pnnp_tpu_torch.train import (
+        make_adam,
+        make_raw_synth,
+        make_raw_synth_packed,
+        make_train_step,
+    )
+    from pnnp_tpu_torch.train.steps import make_eval_metrics_step, pad_to_multiple
+
+    out = {"eval": {}, "train": {}}
+    for frame, (h, w, _) in (("sony", SONY), ("imx686", IMX686)):
+        rng = np.random.default_rng(1)
+        lr = torch.from_numpy(rng.uniform(0, 0.4, (1, h, w * 4)).astype(np.float32)).to(dev)
+        hr = torch.from_numpy(rng.uniform(0, 1, (1, h, w * 4)).astype(np.float32)).to(dev)
+        # the arms: the module forward in NCHW and in channels_last memory
+        # (the bf16 default), in bf16 and, beside them, in f32 (TF32 off)
+        nets = {a: UNetSeeInDark(nf=32, dtype=torch.float32 if a.startswith("f32") else
+                                 torch.bfloat16, generator=torch.Generator().manual_seed(0)
+                                 ).to(dev).eval()
+                for a in ("nchw", "nchw_cl", "packed", "f32_nchw", "f32_cl")}
+        steps = {a: make_eval_metrics_step(net, packed=a == "packed",
+                                           memory_format=_ARM_FORMAT.get(a))
+                 for a, net in nets.items()}
+        g1 = s2d(pad_to_multiple(lr.reshape(1, h, w, 4), 16)[0].permute(0, 3, 1, 2))
+        tp = steps["packed"].tparams()
+        qp = PI.quantize_params_int8(tp, PI.calibrate_act_scales(tp, [g1], pct=99.95))
+        steps["int8"] = make_eval_metrics_step(nets["packed"], qparams=qp)
+        correct = frame == "sony"  # the IMX686 evals are uncorrected
+        calls = {a: (lambda s=s: s(lr, hr, 1.0, correct=correct)) for a, s in steps.items()}
+        ab = _in_turns(("nchw", "nchw_cl", "packed"),
+                       lambda a: _time_ms(calls[a], warmup=3, iters=10))
+        ab.update(_in_turns(("f32_nchw", "f32_cl"),
+                            lambda a: _time_ms(calls[a], warmup=3, iters=10)))
+        ab["int8"] = {"runs": [_time_ms(calls["int8"], warmup=2, iters=10)]}
+        ab["int8"]["mean"] = ab["int8"]["runs"][0]
+        prof = {a: _profile(calls[a], ab[a]["mean"]) for a in calls}
+        m = {a: {k: float(v) for k, v in calls[a]()[1].items()} for a in calls}
+        base = ab["nchw"]["mean"]
+        out["eval"][frame] = {
+            "frame": [1, h, w, 4], "ms": ab, "metrics": m,
+            "packed_vs_nchw": ab["packed"]["mean"] / base,
+            "nchw_cl_vs_nchw": ab["nchw_cl"]["mean"] / base,
+            "int8_vs_nchw": ab["int8"]["mean"] / base,
+            "f32_cl_vs_f32_nchw": ab["f32_cl"]["mean"] / ab["f32_nchw"]["mean"],
+            "by_class_ms": {a: p["by_class_ms"] for a, p in prof.items()},
+            "idle_share": {a: p["idle_share"] for a, p in prof.items()},
+            "int8_top_kernels_ms": prof["int8"]["top_kernels_ms"],
+            "int8_top_ops_ms": prof["int8"]["top_ops_ms"],
+        }
+        print(f"eval A/B at {frame} [1, {h}, {w}, 4], ms (in turns; f32_* in f32, the rest "
+              f"bf16): "
+              + ", ".join(f"{a} {v['mean']:.3f} {v['runs']}" for a, v in ab.items())
+              + f"; metrics {m}", flush=True)
+        del nets, steps, calls, tp, qp, prof
+        torch.cuda.empty_cache()
+
+    arms = {}
+    for a in ("nchw", "nchw_cl", "packed", "f32_nchw", "f32_cl"):
+        packed = a == "packed"
+        net = UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(0)).to(dev)
+        synth = (make_raw_synth_packed if packed else make_raw_synth)("SonyA7S2", "pgrq",
+                                                                      ori=False, clip=True)
+        step = make_train_step(lambda e: TRAIN_LR, synth, clip_mode=True,
+                               bf16=not a.startswith("f32"), packed=packed,
+                               memory_format=_ARM_FORMAT.get(a))
+        arms[a] = (net, make_adam(net.parameters()), step,
+                   torch.Generator(device=dev).manual_seed(0))
+    call = lambda a: arms[a][2](arms[a][0], arms[a][1], batch, arms[a][3], 1)
+    ab = _in_turns(("nchw", "nchw_cl", "packed"),
+                   lambda a: _time_ms(lambda: call(a), warmup=3, iters=10))
+    ab.update(_in_turns(("f32_nchw", "f32_cl"),
+                        lambda a: _time_ms(lambda: call(a), warmup=3, iters=10)))
+    split = {a: _split_ms(arms[a][2], arms[a][0], arms[a][1], batch, arms[a][3]) for a in arms}
+    prof = {a: _profile(lambda a=a: call(a), ab[a]["mean"]) for a in arms}
+    out["train"] = {"batch": list(batch["hr"].shape), "ms": ab, "split_ms": split,
+                    "packed_vs_nchw": ab["packed"]["mean"] / ab["nchw"]["mean"],
+                    "nchw_cl_vs_nchw": ab["nchw_cl"]["mean"] / ab["nchw"]["mean"],
+                    "f32_cl_vs_f32_nchw": ab["f32_cl"]["mean"] / ab["f32_nchw"]["mean"],
+                    "by_class_ms": {a: p["by_class_ms"] for a, p in prof.items()},
+                    "idle_share": {a: p["idle_share"] for a, p in prof.items()}}
+    print(f"train A/B, 8 x 512^2 pgrq, ms (in turns; f32_* in f32, the rest bf16): "
+          + ", ".join(f"{a} {v['mean']:.3f} {v['runs']}" for a, v in ab.items())
+          + f"; split {split}", flush=True)
+    del arms
+    torch.cuda.empty_cache()
+    # the decision rule of the defaults: another form replaces the NCHW one
+    # only where it is faster by more than the call-to-call spread
+    wins = lambda r: r < 1 - AB_SPREAD
+    out["wins_over_nchw"] = {
+        **{f"eval_{f}": {a: wins(out["eval"][f][f"{a}_vs_nchw"]) for a in ("nchw_cl", "packed")}
+           for f in out["eval"]},
+        "train": {a: wins(out["train"][f"{a}_vs_nchw"]) for a in ("nchw_cl", "packed")},
+        "f32_cl": {k: wins(v["f32_cl_vs_f32_nchw"])
+                   for k, v in [*out["eval"].items(), ("train", out["train"])]}}
+    print(f"A/B decisions (faster than NCHW by more than {AB_SPREAD:.0%}): "
+          f"{out['wins_over_nchw']}", flush=True)
+    return out
+
+
+def start_validate_int8(ckpt):
+    """``pnnp_tpu_torch/tools/validate_int8.py`` at its default budget
+    (2000 steps of 8 x 256^2; disjoint calibration at pct 99.95 and 100),
+    then the trainer's recipe on its checkpoint (``--skip-train
+    --cal-from-eval --cal-frames 3 --pct 99.95``), in processes of their own
+    beside the ISO ladder. Returns (process, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = [sys.executable, "-m", "pnnp_tpu_torch.tools.validate_int8", "--ckpt", ckpt]
+    script = (subprocess.list2cmdline(tool + VALIDATE_INT8_ARGS) + " && "
+              + subprocess.list2cmdline(tool + ["--skip-train", "--cal-from-eval",
+                                                "--cal-frames", "3", "--pct", "99.95"]))
+    proc = subprocess.Popen(["sh", "-c", script], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_validate_int8(started):
+    """Wait for :func:`start_validate_int8`'s runs and hold them: finite rows,
+    the trained bf16 net 3 dB over the input at ratio 300, the int8 mean
+    delta at the serving default (pct 99.95) within 0.5 dB of bf16; the
+    maxabs (pct 100) delta is reported."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"validate_int8 exited {proc.returncode}: {err[-3000:]}")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith('{"metric"')]
+    _check(len(lines) == 2, f"validate_int8 printed {len(lines)} result lines")
+    res = dict(zip(("disjoint", "from_eval_x3"), lines))
+    steps = [ln for ln in out.splitlines() if ln.startswith("step ")]
+    for r in res.values():
+        rows = r["rows"]
+        _check(all(math.isfinite(v) for row in rows for k, v in row.items() if k != "ratio"),
+               f"validate_int8 rows {rows}")
+        # the serving default (pct 99.95) is held; maxabs (pct 100) is reported
+        _check(abs(r["by_pct"]["99.95"]["mean"]) <= INT8_PSNR_TOL,
+               f"validate_int8 deltas {r['by_pct']}")
+        hi = [row for row in rows if row["ratio"] == 300]
+        _check(hi and hi[0]["psnr_bf16"] >= hi[0]["psnr_in"] + 3.0,
+               f"validate_int8: the trained net does not denoise {hi}")
+    print(f"validate_int8 {VALIDATE_INT8_ARGS}: {wall:.1f} s beside the ISO ladder (training "
+          f"{steps[-1] if steps else '-'}); disjoint x3 by pct {res['disjoint']['by_pct']}; "
+          f"from-eval x3 at 99.95 {res['from_eval_x3']['by_pct']}; bf16 vs f32 "
+          f"{res['disjoint']['bf16_vs_f32']} dB", flush=True)
+    return dict(res, args=VALIDATE_INT8_ARGS, wall_s=wall, train_log=steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2355,15 +2803,20 @@ def main() -> int:
     train_launches, train_run, batch = phase_train_main_path(dev)
     step_check = phase_train_step_check(dev)
     proxy_checks = phase_proxy_checks(dev)
-    # validate_nf and the reduced A/B run beside the ladder, each in a
-    # process of its own
+    # validate_nf, the reduced A/B and validate_int8 run beside the ladder,
+    # each in a process of its own
+    # (validate_int8's checkpoint serves phase 13's --int8 eval)
+    vint8_dir = tempfile.TemporaryDirectory(prefix="pnnp_validate_int8_")
+    vint8_ckpt = os.path.join(vint8_dir.name, "validate_int8.ckpt")
     validate_nf, ab = start_validate_nf(), start_ab()
+    vint8 = start_validate_int8(vint8_ckpt)
     try:
         ladder = phase_iso_ladder(dev)
         validate_nf = finish_validate_nf(validate_nf)
         ab = finish_ab(ab)
+        vint8 = finish_validate_int8(vint8)
     finally:
-        for started in (validate_nf, ab):
+        for started in (validate_nf, ab, vint8):
             if isinstance(started, tuple) and started[0].poll() is None:
                 started[0].kill()
                 started[0].wait()
@@ -2382,6 +2835,10 @@ def main() -> int:
     print(f"NoiseFlow card vs cpu at {FLOW_CHECK}: {flow_card}", flush=True)
     # after NoiseFlow: the f32 predict turns TF32 off for the process too
     eval_launches, eval_paths, srgb_err = phase_eval_paths(dev)
+    packed_checks = phase_packed_checks(dev)
+    int8_launches, int8_runs = phase_int8_eval(dev, vint8_ckpt)
+    vint8_dir.cleanup()
+    packed_timings = phase_packed_timings(dev, batch)
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
     timings.update(train_main_path=train_run, train_step_check=step_check,
@@ -2390,14 +2847,16 @@ def main() -> int:
                    baselines=dict(base_runs, **base_timings),
                    noiseflow=dict(flow_runs, card_vs_cpu=flow_card, validate_nf=validate_nf,
                                   **flow_timings),
-                   eval_paths=eval_paths, ab_reduced=ab)
+                   eval_paths=eval_paths, ab_reduced=ab,
+                   packed_int8=dict(checks=packed_checks, **int8_runs, ab=packed_timings,
+                                    validate_int8=vint8))
 
     # one row per SSIM route: the main path's (hopper) and the first version
     # (generic, rgb_quality's route); launches of each path's run (the eval
     # run, the train run's, the PNNP run's, the baseline runs' and the NF.yml
     # runs' eval legs, the rgb, unfused, LED and predict runs) and their sum
     by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches,
-               **base_launches, **flow_launches, **eval_launches}
+               **base_launches, **flow_launches, **eval_launches, **int8_launches}
     kernels = [dict(
         name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
         replaces="pnnp_tpu/kernels/ssim.py:39",

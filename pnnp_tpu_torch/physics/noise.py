@@ -1,5 +1,5 @@
 """The physics noise synthesis, batched, on the device (counterpart of
-``pnnp_tpu/physics/noise.py:37-115``).
+``pnnp_tpu/physics/noise.py:37-148``), in the NCHW and the packed layout.
 
 Implements the reference's ``noise_code`` char DSL (reference:
 data_process/process.py:591-673):
@@ -55,9 +55,22 @@ def generate_noisy(
     reference: process.py:609-622). The JAX function's MultiFrameMean
     factor ``mfm`` is left out: no recipe sets it (it is 1 everywhere).
     """
+    n, c, h, _ = y.shape
+
+    def row(g, sig_r):
+        # one draw per (example, channel, row), broadcast over w
+        return torch.randn((n, c, h, 1), generator=g, device=g.device) * sig_r
+
+    return _generate_noisy_core(generator, y, params, noise_code, ori, clip, row,
+                                lambda: params["bias"][:, :, None, None])
+
+
+def _generate_noisy_core(generator, y, params, noise_code, ori, clip, row_fn, bias_fn):
+    """The physics of :func:`generate_noisy` and :func:`generate_noisy_packed`:
+    all but the layout's row-noise draw and bias broadcast, which the
+    wrappers pass in."""
     nc = NoiseCode(noise_code)
     g = generator
-    n, c, h, _ = y.shape
 
     scale = params["wp"] - params["bl"]  # [n]
     y_adu = y * _b(scale / params["ratio"])
@@ -79,13 +92,12 @@ def generate_noisy(
         else:
             z += torch.randn(y.shape, generator=g, device=g.device) * _b(params["sigGs"])
         if nc.row:
-            # one draw per (example, channel, row), broadcast over w
-            z += torch.randn((n, c, h, 1), generator=g, device=g.device) * _b(params["sigR"])
+            z += row_fn(g, _b(params["sigR"]))
         if nc.quant:
             z += (torch.rand(y.shape, generator=g, device=g.device) - 0.5) * _b(
                 params["q"] * scale)
         if nc.dark_bias:
-            z += params["bias"][:, :, None, None]
+            z += bias_fn()
 
     z /= _b(scale)
     if clip:
@@ -95,6 +107,32 @@ def generate_noisy(
     if not ori:
         z *= _b(params["ratio"])
     return z
+
+
+def generate_noisy_packed(
+    generator: torch.Generator,
+    y: torch.Tensor,
+    params: dict,
+    noise_code: str = "p",
+    ori: bool = False,
+    clip: bool = False,
+) -> torch.Tensor:
+    """:func:`generate_noisy` over the packed (s2d) layout: ``y`` ``[n, 16,
+    h, w]`` with channels ``(2*aH + aW)*4 + c``
+    (:func:`pnnp_tpu_torch.models.unet_s2d.s2d`). The per-pixel components
+    do not see the layout; the row noise is drawn per (full-resolution row,
+    RGBG channel), i.e. per ``(h, aH, c)``, and broadcast over ``aW`` and
+    ``w``: the banding of the unpacked generator, exactly. The dark bias
+    is tiled over the 4 groups."""
+    n, c16, h, _ = y.shape
+    assert c16 == 16, "packed layout has 16 channels"
+
+    def row(g, sig_r):
+        r = torch.randn((n, 2, 1, 4, h, 1), generator=g, device=g.device)
+        return (r * sig_r.reshape(-1, 1, 1, 1, 1, 1)).expand(n, 2, 2, 4, h, 1).reshape(n, 16, h, 1)
+
+    return _generate_noisy_core(generator, y, params, noise_code, ori, clip, row,
+                                lambda: params["bias"].repeat(1, 4)[:, :, None, None])
 
 
 def _k_and_wp_for(generator: torch.Generator, camera_type: str, iso, n: int = 1):

@@ -12,6 +12,7 @@ from pnnp_tpu_torch.train.schedules import (
 )
 from pnnp_tpu_torch.train.state import apply_scaled_updates, clip_by_global_norm, make_adam
 from pnnp_tpu_torch.train.steps import (
+    HybridParams,
     TrainStep,
     clip_lr_hr,
     identity_synth,
@@ -20,7 +21,10 @@ from pnnp_tpu_torch.train.steps import (
     make_mix_synth,
     make_proxy_synth,
     make_raw_synth,
+    make_raw_synth_packed,
     make_train_step,
+    pack_synth,
     pad_split,
     pad_to_multiple,
+    params_key,
 )

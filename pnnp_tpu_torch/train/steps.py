@@ -25,9 +25,21 @@ import torch
 import torch.nn.functional as F
 
 from pnnp_tpu_torch.kernels.ssim import ssim_flat
+from pnnp_tpu_torch.models.unet_s2d import (
+    d2s,
+    packed_from_host,
+    s2d,
+    transform_params_hybrid,
+    unet_hybrid_forward_packed,
+)
 from pnnp_tpu_torch.ops.correct import illuminance_correct
 from pnnp_tpu_torch.physics.calibration import HALF_CLIP, LEGAL_ISO
-from pnnp_tpu_torch.physics.noise import generate_noisy, get_aug_param, sna
+from pnnp_tpu_torch.physics.noise import (
+    generate_noisy,
+    generate_noisy_packed,
+    get_aug_param,
+    sna,
+)
 from pnnp_tpu_torch.physics.sampling import sample_params_max
 from pnnp_tpu_torch.train.losses import unet_loss
 from pnnp_tpu_torch.train.state import apply_scaled_updates
@@ -95,6 +107,41 @@ def make_raw_synth(camera_type: str, noise_code: str, ori: bool, clip: bool,
         return lr, hr, params["ratio"]
 
     return synth
+
+
+def make_raw_synth_packed(camera_type: str, noise_code: str, ori: bool, clip: bool,
+                          iso=None, ratio=None, gtdn: bool = False,
+                          lrid: bool = False, noiseparam: Optional[dict] = None):
+    """:func:`make_raw_synth` in the packed layout: the same draws and
+    distribution (row banding exact, :func:`generate_noisy_packed`), lr and
+    hr ``[n, 16, h/2, w/2]`` for the packed train step. ``batch["hr"]`` may
+    come unpacked ``[n, 4, h, w]`` (packed here, once) or packed."""
+    table = _noiseparam_table(camera_type, iso, noiseparam)
+
+    def synth(generator, batch):
+        hr = batch["hr"]
+        if hr.shape[1] == 4:
+            hr = s2d(hr)
+        params = _raw_synth_params(generator, camera_type, hr.shape[0], iso, ratio,
+                                   gtdn, lrid, table)
+        lr = generate_noisy_packed(generator, hr, params, noise_code, ori=ori,
+                                   clip=bool(clip))
+        return lr, hr, params["ratio"]
+
+    return synth
+
+
+def pack_synth(synth: Callable) -> Callable:
+    """An unpacked synth stage for the packed train step: lr and hr packed
+    once, after synthesis (no gradient flows through data)."""
+
+    def packed(generator, batch):
+        lr, hr, ratio = synth(generator, batch)
+        if lr.shape[1] == 4:
+            lr, hr = s2d(lr), s2d(hr)
+        return lr, hr, ratio
+
+    return packed
 
 
 def make_proxy_synth(sample_fn: Callable, ori: bool = False,
@@ -209,6 +256,36 @@ def identity_synth(generator, batch):
     return batch["lr"], hr, ratio
 
 
+# The memory of a module's 4-D parameters for bf16 compute: channels_last,
+# where cuDNN runs the convolutions NHWC without the NCHW <-> NHWC
+# transforms it puts around each one otherwise. chip_smoke.py's same-call
+# A/B (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W), NCHW ->
+# channels_last: the bf16 train step at 8 x 512^2 pgrq 27.471 -> 20.253 ms,
+# the bf16 fused eval step 16.855 -> 12.938 ms at the IMX686 frame and
+# 10.102 -> 9.979 at the Sony frame. f32 (TF32 off) stays NCHW, where
+# channels_last was slower: train 131.978 -> 143.175 ms, IMX686 eval
+# 52.351 -> 59.589.
+BF16_MEMORY_FORMAT = torch.channels_last
+
+
+def to_memory_format(model, memory_format) -> None:
+    """Moves a module's 4-D parameters (and their gradients) into
+    ``memory_format`` in place, where they are not in it yet. Values, shapes
+    and the parameter objects stay: an optimizer built on them keeps them."""
+    if not all(p.is_contiguous(memory_format=memory_format)
+               for p in model.parameters() if p.dim() == 4):
+        model.to(memory_format=memory_format)
+
+
+def _serving_memory_format(model, memory_format=None) -> None:
+    """An eval step's module in ``memory_format``, by default
+    :data:`BF16_MEMORY_FORMAT` for a bf16 model (f32 as it comes)."""
+    if memory_format is None and getattr(model, "dtype", None) == torch.bfloat16:
+        memory_format = BF16_MEMORY_FORMAT
+    if memory_format is not None:
+        to_memory_format(model, memory_format)
+
+
 class TrainStep:
     """``step(model, opt, batch, generator, epoch) -> metrics``.
 
@@ -223,16 +300,35 @@ class TrainStep:
     bfloat16 (the JAX package's fast path: f32 master params, bf16 forward);
     otherwise the step is exact float32, with TF32 off.
 
+    ``packed=True`` (UNetSeeInDark; JAX's ``fast="packed"``) runs the whole
+    step in the packed layout: the synth yields ``[n, 16, h/2, w/2]`` lr/hr
+    (:func:`make_raw_synth_packed`, or :func:`pack_synth` around another),
+    the forward is :func:`~pnnp_tpu_torch.models.unet_s2d.unet_hybrid_forward_packed`
+    on the :func:`~pnnp_tpu_torch.models.unet_s2d.transform_params_hybrid`
+    fold of the model's own parameters, in bf16 or f32 as above but cast
+    explicitly, as JAX does, not under autocast; the fold is differentiable,
+    so the gradients land on the standard parameters. L1 and MSE do not see
+    the permutation: loss and psnr are the unpacked step's.
+
+    The module forward runs on parameters in ``memory_format`` memory,
+    moved there in place at the first step: by default
+    :data:`BF16_MEMORY_FORMAT` in bf16, f32 as they come.
+
     The stages are methods so that they can be timed one by one:
     :meth:`make_pair`, :meth:`forward_backward`, :meth:`update`.
     """
 
     def __init__(self, lr_schedule: Callable, synth: Callable = identity_synth,
-                 clip_mode=0, bf16: bool = False):
+                 clip_mode=0, bf16: bool = False, packed: bool = False,
+                 memory_format: Optional[torch.memory_format] = None):
         self.lr_schedule = lr_schedule
         self.synth = synth
         self.clip_mode = clip_mode
         self.bf16 = bf16
+        self.packed = packed
+        if memory_format is None and bf16 and not packed:
+            memory_format = BF16_MEMORY_FORMAT
+        self.memory_format = memory_format
 
     @torch.no_grad()
     def make_pair(self, batch, generator):
@@ -241,8 +337,17 @@ class TrainStep:
 
     def forward_backward(self, model, lr_img, hr_img):
         """Fills the parameters' ``.grad``; returns (loss, pred), detached."""
+        if self.memory_format is not None:
+            to_memory_format(model, self.memory_format)
         model.zero_grad(set_to_none=True)
-        if self.bf16:
+        if self.packed:
+            dtype = torch.bfloat16 if self.bf16 else torch.float32
+            if not self.bf16:
+                _exact_f32(model)
+            tp = transform_params_hybrid(model, dtype)
+            pred = unet_hybrid_forward_packed(tp, lr_img, lr_img if model.res else None, dtype)
+            loss = unet_loss(pred, hr_img)
+        elif self.bf16:
             with torch.autocast(lr_img.device.type, dtype=torch.bfloat16):
                 pred = model(lr_img)
                 loss = unet_loss(pred, hr_img)
@@ -270,12 +375,14 @@ class TrainStep:
 
 def make_train_step(lr_schedule: Callable, synth: Callable = identity_synth,
                     clip_mode=0, deep_supervision: bool = False,
-                    bf16: bool = False) -> TrainStep:
+                    bf16: bool = False, packed: bool = False,
+                    memory_format: Optional[torch.memory_format] = None) -> TrainStep:
     """Build the train step (see :class:`TrainStep`)."""
     if deep_supervision:
         raise NotImplementedError(
             "deep supervision (use_dpsv) training is not ported yet (ROADMAP 1.13)")
-    return TrainStep(lr_schedule, synth, clip_mode=clip_mode, bf16=bf16)
+    return TrainStep(lr_schedule, synth, clip_mode=clip_mode, bf16=bf16, packed=packed,
+                     memory_format=memory_format)
 
 
 def pad_split(n: int, mult: int = 16):
@@ -319,7 +426,33 @@ def _forward_cropped(model, x_nchw: torch.Tensor) -> torch.Tensor:
     return model(xp)[:, :, oy:oy + H, ox:ox + W]
 
 
-def make_eval_metrics_step(model):
+def params_key(model) -> tuple:
+    """The identity of a module's parameter values: each parameter's storage
+    and in-place version. It changes when the parameters are replaced or
+    written in place (``load_state_dict``, an optimizer step)."""
+    return tuple((p.data_ptr(), p._version) for p in model.parameters())
+
+
+class HybridParams:
+    """``transform_params_hybrid(model, model.dtype)``, computed once and
+    again only when :func:`params_key` of the model changes."""
+
+    def __init__(self, model):
+        self.model = model
+        self.key = None
+        self.tparams = None
+
+    def __call__(self) -> dict:
+        key = params_key(self.model)
+        if key != self.key:
+            with torch.no_grad():
+                self.tparams = transform_params_hybrid(self.model, self.model.dtype)
+            self.key = key
+        return self.tparams
+
+
+def make_eval_metrics_step(model, qparams: Optional[dict] = None, packed: bool = False,
+                           memory_format: Optional[torch.memory_format] = None):
     """Fused full-frame eval: forward + clip + illuminance correction +
     PSNR + SSIM (the CUDA kernel on the card) in one call.
 
@@ -328,13 +461,40 @@ def make_eval_metrics_step(model):
     [/psnr_in/ssim_in]) and, with ``with_inputs``, the (ori-scaled, clipped)
     input panel ``lr_panel`` [1, H, W*4] as a third element. ``lr``/``hr``
     are flat ``[1, H, W*4]`` or ``[1, H, W, 4]`` tensors on the model's
-    device. Reference eval semantics (trainer_SID.py:221-248): ori
+    device; ``lr`` may also come pre-packed by the host
+    (:func:`~pnnp_tpu_torch.models.unet_s2d.pack_frame_np`: %16 reflect pad
+    and s2d, NHWC ``[1, H'/2, W'/2, 16]``), the crop then taken from ``hr``'s
+    shape. Reference eval semantics (trainer_SID.py:221-248): ori
     amplification, clip, correct dn against hr, score at data_range 255.
+
+    The forward: the NCHW module (default), or with ``packed`` the hybrid
+    packed form (:func:`~pnnp_tpu_torch.models.unet_s2d.unet_hybrid_forward_packed`,
+    JAX's forward here) on weights transformed once per parameter version;
+    with ``qparams`` (from
+    :func:`~pnnp_tpu_torch.models.unet_s2d_int8.quantize_params_int8`) the
+    W8A8 forward, the metrics in f32 as ever (a ``res`` model is refused).
     The model runs in its own dtype (bf16 serving, or f32) and hands back
-    float32.
+    float32. ``step.tparams()`` gives the transformed weights. The module
+    forward's parameters move into ``memory_format`` memory here, in place
+    (by default :data:`BF16_MEMORY_FORMAT` for a bf16 model, f32 as it
+    comes).
     """
     _exact_f32(model)
+    if not packed and qparams is None:
+        _serving_memory_format(model, memory_format)
     in_nc = getattr(model, "in_nc", 4)
+    res = bool(getattr(model, "res", False))
+    if qparams is not None:
+        if res:
+            raise ValueError("the int8 serving path has no residual-input support")
+        from pnnp_tpu_torch.models.unet_s2d_int8 import unet_hybrid_forward_packed_int8
+
+        fwd = lambda tp, g1: unet_hybrid_forward_packed_int8(tp, qparams, g1, model.dtype)
+        packed = True
+    else:
+        fwd = lambda tp, g1: unet_hybrid_forward_packed(tp, g1, g1 if res else None,
+                                                        model.dtype)
+    tparams = HybridParams(model)
 
     @torch.no_grad()
     def step(lr, hr, ratio, *, ori=False, correct=True, with_inputs=False):
@@ -342,15 +502,28 @@ def make_eval_metrics_step(model):
             lr = lr.reshape(1, lr.shape[1], -1, 4)
         if hr.dim() == 3:
             hr = hr.reshape(1, hr.shape[1], -1, 4)
-        if lr.shape[-1] == 16 and in_nc == 4:
-            raise NotImplementedError(
-                "host pre-packed 16-channel eval input is not ported yet "
-                "(ROADMAP 1.10 packed forms)")
-        dn = _forward_cropped(model, lr.permute(0, 3, 1, 2))
-        H = dn.shape[-2]
+        H, W = hr.shape[1], hr.shape[2]
+        # host pre-packed: only unambiguous for a model of 4-channel frames
+        # (a 16-channel lr of an in_nc=16 model is an unpacked input)
+        host_packed = lr.shape[-1] == 16 and in_nc == 4
+        if host_packed:
+            g1 = packed_from_host(lr)
+            oy, ox = pad_split(H)[0], pad_split(W)[0]
+            crop = lambda t: t[:, :, oy:oy + H, ox:ox + W]
+        if packed:
+            if not host_packed:
+                x, (oy, ox, _, _) = _pad_nchw(lr.permute(0, 3, 1, 2).float(), 16)
+                crop = lambda t: t[:, :, oy:oy + H, ox:ox + W]
+                g1 = s2d(x)
+            dn = crop(d2s(fwd(tparams(), g1))).float()
+        elif host_packed:
+            dn = crop(model(d2s(g1).float()))
+        else:
+            dn = _forward_cropped(model, lr.permute(0, 3, 1, 2))
         dnf = dn[0].permute(1, 2, 0).reshape(H, -1)  # [H, W*4] dense copy
-        if with_inputs:
-            lrf = lr[0].float().reshape(H, -1)
+        if with_inputs:  # the only consumer of the unpacked input frame
+            lr_un = crop(d2s(g1)).permute(0, 2, 3, 1) if host_packed else lr
+            lrf = lr_un[0].float().reshape(H, -1)
         if ori:
             r = torch.as_tensor(ratio, dtype=torch.float32,
                                 device=dnf.device).reshape(())
@@ -380,13 +553,16 @@ def make_eval_metrics_step(model):
             return dnf[None], metrics, lrf[None]
         return dnf[None], metrics
 
+    step.tparams = tparams
     return step
 
 
 def make_eval_step(model):
     """eval_step(lr_img [N, H, W, C]) -> denoised [N, H, W, out_nc] float32,
-    with %16 reflect padding (the plain forward ``dump`` mode uses)."""
+    with %16 reflect padding (the plain forward ``dump`` mode uses); a bf16
+    model in :data:`BF16_MEMORY_FORMAT` memory."""
     _exact_f32(model)
+    _serving_memory_format(model)
 
     @torch.no_grad()
     def step(lr_img):

@@ -17,11 +17,14 @@ shot-noise augmentation of real pairs for the ``Mix_Dataset`` names, with
 HighBitRecovery of the IMX686 bias pastes on the card; black-frame shot
 noise plus the real read layer for the SFRN names; or real pairs, the PMNNP
 names included, as in JAX), then forward, L1, backward and Adam scaled by
-``lr(epoch)``. UNetSeeInDark
-trains with a bf16 forward under autocast (f32 with ``disable_fast_path:
-true``). ``train`` evaluates every ``plot_freq`` epochs, reloads the best
-weights at each SGDR period boundary, and ends with the ``evaltest`` sweep
-over the best weights; ``trainonly`` trains without the eval legs.
+``lr(epoch)``. UNetSeeInDark trains with a bf16 forward under autocast
+(f32 with ``disable_fast_path: true``); where :attr:`Trainer.packed_step`
+is on, through the JAX Trainer's packed step instead
+(``pnnp_tpu/trainer.py:203-216``: the synth packs, the forward is the
+hybrid dense-s2d form of the same parameters). ``train`` evaluates every
+``plot_freq`` epochs, reloads the best weights at each SGDR period boundary,
+and ends with the ``evaltest`` sweep over the best weights; ``trainonly``
+trains without the eval legs.
 
 Eval serves UNetSeeInDark in bf16 (f32 with ``disable_fast_path: true``)
 through one fused step: forward, clip, illuminance correction (not for the
@@ -43,9 +46,16 @@ host by a 4-thread pool; without matplotlib the render is skipped, logged
 once per run. :meth:`Trainer.predict` is the reference's tiled full-frame
 inference.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-deep supervision (1.13) and ``--int8`` serving (1.15); the ``Img_Dataset``
-and ``Multi_*`` datasets raise ``KeyError`` naming the rest of 1.11.
+``--int8`` serves the fused eval through the W8A8 packed forward
+(:mod:`pnnp_tpu_torch.models.unet_s2d_int8`), as the JAX Trainer: the first
+``int8_cal_frames`` (default 3) eval frames calibrate the activation scales
+(pct 99.95, max-combined), the first N - 1 served by the bf16 fused step
+while they accrue; the weights are quantized once per parameter version and
+serve from frame N on.
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP item:
+deep supervision (1.13); the ``Img_Dataset`` and ``Multi_*`` datasets raise
+``KeyError`` naming the rest of 1.11.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from pnnp_tpu_torch.models import (
     params_to_jax,
 )
 from pnnp_tpu_torch.kernels.ssim import ssim_kernel
+from pnnp_tpu_torch.models.unet_s2d import s2d
 from pnnp_tpu_torch.ops import fast_isp, illuminance_correct, psnr, raw2bayer, tiled_apply
 from pnnp_tpu_torch.ops.metrics import rgb_quality
 from pnnp_tpu_torch.train import (
@@ -83,7 +94,11 @@ from pnnp_tpu_torch.train import (
     make_mix_synth,
     make_proxy_synth,
     make_raw_synth,
+    make_raw_synth_packed,
     make_train_step,
+    pack_synth,
+    pad_to_multiple,
+    params_key,
 )
 from pnnp_tpu_torch.utils.device import resolve_device
 from pnnp_tpu_torch.utils.logging import AverageMeter, StepTimer, log
@@ -130,15 +145,25 @@ class Parser:
 
 class Trainer:
     _phone_eval_corrects = False  # IMX686 evals uncorrected (see _brightness_correct)
+    # The packed train step (JAX's fast="packed") computes what the unpacked
+    # one does; it is off because it lost chip_smoke.py's same-call A/B
+    # (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): bf16 step at
+    # 8 x 512^2 pgrq, NCHW 27.015 ms, channels_last 19.803 (the bf16 steps'
+    # default memory format), packed 27.976. This is the one selector of
+    # that step: the port never packs unless it is on, so JAX's runfile key
+    # disable_packed_step has nothing to disable and is not read.
+    packed_step = False
 
     def __init__(self, runfile: str, mode: Optional[str] = None, nofig: bool = False,
                  debug: bool = False, root_prefix: Optional[str] = None, seed: int = 1997,
                  int8: bool = False, device=None):
         self.args = load_runfile(runfile, mode=mode, root_prefix=root_prefix)
         self.mode = self.args["mode"]
-        if int8:
-            raise NotImplementedError(
-                "--int8 serving is not ported yet (ROADMAP 1.15)")
+        self.int8_eval = bool(int8)
+        # W8A8 calibration traffic: the first N eval frames (one frame
+        # calibrates worse than several, pnnp_tpu/trainer.py:114-121), served
+        # through the bf16 fused step while they accrue
+        self.int8_cal_frames = int(self.args.get("int8_cal_frames", 3))
         self.device = resolve_device(device)
         self.dst = self.args["dst"]
         self.hyper = self.args["hyper"]
@@ -167,6 +192,7 @@ class Trainer:
         fast = (self.arch.get("name") == "UNetSeeInDark"
                 and not self.arch.get("use_dpsv", False)
                 and not self.args.get("disable_fast_path", False))
+        self.fast = fast
         self.dtype = torch.bfloat16 if fast else torch.float32
         # Training holds f32 master params; eval modes hold the serving
         # weights themselves. Eval legs in training serve a copy in
@@ -207,18 +233,24 @@ class Trainer:
 
         # --- train step (after the datasets: the IMX686 synth reads the
         # train dataset's noiseparam calibration) --------------------------
+        # the packed step: the JAX Trainer's _use_packed (physics, proxy,
+        # Mix, SFRN and paired families alike), where packed_step is on
+        self._use_packed = (fast and self.packed_step
+                            and bool((self.dst_train or {}).get("dataset")))
         self.synth = self._make_synth()
         self.train_step = self.opt = None
         if self.training:
             self.train_step = make_train_step(
                 self.lr_schedule, self.synth, clip_mode=self.dst.get("clip", 0),
-                deep_supervision=bool(self.arch.get("use_dpsv", False)), bf16=fast)
+                deep_supervision=bool(self.arch.get("use_dpsv", False)), bf16=fast,
+                packed=self._use_packed)
             self.opt = make_adam(self.model.parameters())
 
         # --- eval steps ----------------------------------------------------
         self.eval_step = make_eval_step(self.eval_model)
         self._fused_eval = (None if self.args.get("disable_fused_eval", False)
                             else make_eval_metrics_step(self.eval_model))
+        self._int8_cache = {"key": None, "step": None, "cal": []}
 
         # --- meters --------------------------------------------------------
         self.train_psnr = AverageMeter("PSNR", ":2f")
@@ -293,8 +325,18 @@ class Trainer:
     def _make_synth(self):
         """The on-device synthesis stage, by train dataset (the reference
         preprocess dispatch, trainer_SID.py:428-472, as the JAX Trainer's
-        ``_make_synth``); sets ``synth_keys``, the batch keys it reads.
-        """
+        ``_make_synth``); sets ``synth_keys``, the batch keys it reads. For
+        the packed step the physics families synthesize in the packed
+        layout and the others are packed after synthesis."""
+        synth = self._family_synth()
+        return pack_synth(synth) if self._packed() else synth
+
+    def _packed(self) -> bool:
+        # read as the JAX Trainer reads it (a Trainer built without __init__,
+        # as its tests build one, trains unpacked)
+        return getattr(self, "_use_packed", False)
+
+    def _family_synth(self):
         self.synth_keys = self._PAIR_KEYS
         if not self.dst_train or not self.training:
             return identity_synth
@@ -318,8 +360,9 @@ class Trainer:
                 ds = self.dataset_train
                 ds = ds.datasets[0] if hasattr(ds, "datasets") else ds
                 nps = getattr(ds, "noiseparam", {}).get(iso)
-            return make_raw_synth(cam, code, ori, clip, gtdn="GTdn" in command,
-                                  iso=iso, lrid=lrid, noiseparam=nps)
+            mk = make_raw_synth_packed if self._packed() else make_raw_synth
+            return mk(cam, code, ori, clip, gtdn="GTdn" in command,
+                      iso=iso, lrid=lrid, noiseparam=nps)
         if name in ("Proxy_Dataset", "IMX686_Proxy_Dataset", "NF_Syn_Dataset",
                     "IMX686_NF_Syn_Dataset"):
             if self.proxy is None:
@@ -367,11 +410,12 @@ class Trainer:
             # GT plus the real bias-frame read layer, amplified alike
             # (reference: syn_datasets.py:465-579)
             self.synth_keys = ("hr", "lr")
-            raw = make_raw_synth(cam, code + "b", ori, clip)
+            packed = self._packed()
+            raw = (make_raw_synth_packed if packed else make_raw_synth)(cam, code + "b", ori, clip)
 
             def synth(generator, batch):
                 lr_shot, hr, ratio = raw(generator, batch)
-                read_layer = batch["lr"]
+                read_layer = s2d(batch["lr"]) if packed else batch["lr"]
                 if not ori:
                     read_layer = read_layer * ratio.reshape(-1, 1, 1, 1)
                 return lr_shot + read_layer, hr, ratio
@@ -527,6 +571,11 @@ class Trainer:
         correct = self._brightness_correct(self.dst_eval) and epoch < 0
         ori = bool(self.dst_eval.get("ori", self.dst.get("ori", False)))
         fused = self._fused_eval is not None and not self.rgb_metrics
+        if self.int8_eval and not (fused and self.fast):
+            raise ValueError(
+                "--int8 eval serves through the fused raw-domain path: it "
+                "requires the fast UNetSeeInDark arch, no "
+                "disable_fused_eval, and no rgb_metrics")
         loader = DataLoader(self.dataset_eval, batch_size=1, shuffle=False,
                             num_workers=0 if self.debug else 2)
         for k, batch in enumerate(loader):
@@ -534,8 +583,10 @@ class Trainer:
             lr, hr = self._to_device(batch["lr"]), self._to_device(batch["hr"])
             ratio = float(np.asarray(batch["ratio"]).reshape(-1)[0])
             if fused:
-                out = self._fused_eval(lr, hr, ratio, ori=ori, correct=correct,
-                                       with_inputs=self.save_plot)
+                step = ((self._int8_eval_step(lr) or self._fused_eval)
+                        if self.int8_eval else self._fused_eval)
+                out = step(lr, hr, ratio, ori=ori, correct=correct,
+                           with_inputs=self.save_plot)
                 m = out[1]
                 p, s = float(m["psnr"]), float(m["ssim"])
                 if self.save_plot:
@@ -590,6 +641,37 @@ class Trainer:
             with open(metrics_path, "wb") as f:
                 pickle.dump(metrics, f)
         self._drain_plots()
+
+    def _int8_eval_step(self, lr):
+        """The fused eval step served through the W8A8 path (``--int8``),
+        or None while the calibration frames accrue: the first
+        ``int8_cal_frames`` (N) eval frames of these parameters calibrate
+        the scales at pct 99.95 (max-combined), the first N - 1 served by
+        the bf16 fused step (their metrics count as the sweep's), and the
+        weights are quantized once, at frame N, which serves int8. Cached
+        until the served parameters change (``params_key``); an eval shorter
+        than N frames runs all in bf16."""
+        c = self._int8_cache
+        key = params_key(self.eval_model)
+        if c["key"] != key:
+            c.update(key=key, step=None, cal=[])
+        if c["step"] is not None:
+            return c["step"]
+
+        import pnnp_tpu_torch.models.unet_s2d_int8 as i8
+
+        x = lr.reshape(1, lr.shape[1], -1, 4) if lr.dim() == 3 else lr
+        c["cal"].append(s2d(pad_to_multiple(x, 16)[0].permute(0, 3, 1, 2)))
+        if len(c["cal"]) < max(self.int8_cal_frames, 1):
+            return None
+        tp = self._fused_eval.tparams()
+        qp = i8.quantize_params_int8(
+            tp, i8.calibrate_act_scales(tp, c["cal"], self.eval_model.dtype, pct=99.95))
+        log(f"int8: calibrated on {len(c['cal'])} eval frames (pct 99.95), "
+            f"{len(qp['layers'])} layers quantized")
+        c["cal"] = []
+        c["step"] = make_eval_metrics_step(self.eval_model, qparams=qp)
+        return c["step"]
 
     @staticmethod
     def _sample_wb_ccm(batch):

@@ -148,6 +148,28 @@ def test_pad_to_multiple_matches_reference_symmetric_pad():
 
 
 def test_packed_16_channel_input_raises(params):
-    step = make_eval_metrics_step(_port_model(params, torch.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.10"):
-        step(torch.zeros(1, 16, 24, 16), torch.zeros(1, 32, 48, 4), 1.0)
+    """A host pre-packed 16-channel frame (``pack_frame_np``: %16 reflect pad
+    and s2d) raised until the packed forms were ported; the step now serves
+    it through its packed branch, the crop taken from hr: the unpacked
+    frame's outputs exactly, and within the bf16 bars of JAX's fused step
+    fed the same packed frame (JAX's packed branch)."""
+    from pnnp_tpu_torch.models.unet_s2d import pack_frame_np
+
+    rng = np.random.default_rng(6)
+    lr = rng.uniform(0, 0.4, (1, 40, 56, 4)).astype(np.float32)  # pads to 48 x 64
+    hr = rng.uniform(0, 1.0, (1, 40, 56, 4)).astype(np.float32)
+    g = pack_frame_np(lr)
+    assert g.shape == (1, 24, 32, 16)
+    kw = dict(ori=True, correct=True, with_inputs=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        step = make_eval_metrics_step(_port_model(params, dtype))
+        a = step(torch.from_numpy(lr), torch.from_numpy(hr), 2.0, **kw)
+        b = step(torch.from_numpy(g), torch.from_numpy(hr), 2.0, **kw)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+        assert {k: float(v) for k, v in a[1].items()} == {k: float(v) for k, v in b[1].items()}
+    _, m_ref, _ = jax_make_fused(FlaxUNet(nf=NF))(
+        transform_params_hybrid(params), jnp.asarray(g), jnp.asarray(hr),
+        jnp.float32(2.0), **kw)
+    assert abs(float(b[1]["psnr"]) - float(m_ref["psnr"])) < 1e-2
+    assert abs(float(b[1]["ssim"]) - float(m_ref["ssim"])) < 1e-3
+    assert abs(float(b[1]["psnr_in"]) - float(m_ref["psnr_in"])) < 5e-3

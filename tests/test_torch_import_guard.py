@@ -57,7 +57,9 @@ def test_no_forbidden_import_in_sources():
             "pnnp_tpu_torch/tools/validate_nf.py", "pnnp_tpu_torch/trainer_led.py",
             "pnnp_tpu_torch/ops/isp.py", "pnnp_tpu_torch/ops/tiling.py",
             "pnnp_tpu_torch/tools/ab_proxy_vs_physics.py",
-            "pnnp_tpu_torch/utils/profiling.py"} <= names
+            "pnnp_tpu_torch/utils/profiling.py", "pnnp_tpu_torch/models/unet_s2d.py",
+            "pnnp_tpu_torch/models/unet_s2d_int8.py", "pnnp_tpu_torch/ops/int8conv.py",
+            "pnnp_tpu_torch/tools/validate_int8.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert not bad, bad

@@ -148,7 +148,6 @@ def test_eval_bf16_matches_jax(slice_setup, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,kw,item", [
-    ({}, {"int8": True}, "1.15"),
     ({"mode": "train", "arch": {"name": "UNetSeeInDark", "nf": 4, "use_dpsv": True}},
      {}, "1.13"),
 ])
