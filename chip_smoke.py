@@ -38,7 +38,7 @@ and no result line):
    closed form (tests/test_torch_cuda_proxy.py runs the same checks);
 6. the ISO ladder: ``pnnp_tpu_torch/tools/validate_proxy.py`` at the budget
    of tests/test_proxy_iso_ladder.py (4000 steps, d=256, 8 x 32^2), for
-   three seeds (``tools/ladder_spread.py``): the trained ISOs held to that
+   two seeds (``tools/ladder_spread.py``): the trained ISOs held to that
    test's KLD bars and the trained-12800 row KLD to twice the JAX
    package's largest reading (``LADDER_ROW_12800_BAR``) in every run, the
    row law's std and support printed, the held-out ISO 6400 reported
@@ -148,6 +148,25 @@ and no result line):
    512^2 ``pgrq`` through the same three; the f32 eval and train steps in
    NCHW against ``channels_last``.
 
+14. several devices (ROADMAP 1.16, ``phase_multidevice``): 2 ``gloo``
+   ranks, spawned, both on cuda:0 (NCCL refuses two ranks on one card;
+   the backend is printed): ``trainer.main --mode train`` of ELD.yml (a
+   2-scene 2848x4256 fixture, one epoch: data-parallel steps, each rank
+   keeping 4 of every frame's 8 crops, and the eval legs and ``evaltest``
+   through the width-sharded fused step, the SSIM kernel launched on every
+   rank's slab; launches under ``sharded``) and ``trainer_nf --kind
+   noise_flow`` of NoiseFlow.yml (one epoch, BatchNorm moments over both
+   ranks), each ending with equal parameter (and running-statistic) sums
+   on both ranks; the sharded
+   fused eval at the full Sony and IMX686 frames (nf=32, bf16
+   ``channels_last``) held to the single-device step on the same card
+   (PSNR 1e-3, SSIM 1e-5) and timed beside it, with and without the frame
+   gather; the data-parallel bf16 train step at 8 x 512^2 ``pgrq``, its
+   params bit-identical across the ranks after 3 steps, timed beside the
+   one-rank step (``pnnp_tpu_torch/tools/multidevice.py``'s checks); and
+   the per-rank SSIM slabs ``[1424, 4312]`` and ``[1736, 4696]`` on the
+   ``hopper`` route against the plain version, timed against their bound.
+
 Phase 2 also holds the ``generic`` route at the sRGB frames of
 ``rgb_quality`` (``SRGB_SONY``, ``SRGB_IMX686``), and phase 12 times it at
 the Sony one.
@@ -157,7 +176,8 @@ SSIM route: ``ssim`` is the ``hopper`` route of the main path, timed at the
 raw Sony frame; ``ssim_generic`` the first CUDA version, the route of
 ``rgb_quality``, timed at the sRGB Sony frame; ``launches`` sums the eval,
 the train, the PNNP, the four baseline, the two NF.yml, the rgb, unfused,
-LED, predict, int8 and packed-train runs, ``launches_by_path`` keeps each),
+LED, predict, int8 and packed-train runs and the two ranks' ``sharded``
+path, ``launches_by_path`` keeps each),
 the ``nvidia-smi``
 name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -206,13 +226,15 @@ PNNP_LR = 1e-4  # PNNP.yml's learning_rate, held fixed
 PROXY_D = 1024  # PNNP.yml's arch_proxy.d
 NF_LR = 1e-3  # the proxy trainer's fixed lr
 # tests/test_proxy_iso_ladder.py:27's budget, at the JAX tool's defaults, and
-# the seeds of the ladder's runs (each a fresh init draw and training stream)
+# the seeds of the ladder's runs (each a fresh init draw and training stream;
+# two since phase 14 joined: the ladder runs its seeds one after another and
+# is the longest of the host-bound phases, 80 s a seed)
 LADDER_ARGS = ["--steps", "4000", "--eval-frames", "16", "--d", "256", "--patch", "32",
                "--batch", "8"]
-LADDER_SEEDS = "0,1,2"
+LADDER_SEEDS = "0,1"
 # the trained ISO-12800 row KLD of every seed: twice the largest of the JAX
 # package's own runs at this budget (0.0315, float64 seed 0; float32 reads
-# 0.0014-0.0271 over seeds 0-2; tools/validate_proxy_seeded.py), as three
+# 0.0014-0.0271 over seeds 0-2; tools/validate_proxy_seeded.py), as a few
 # seeds do not bound the spread. The row head's log-scale walks onto its
 # lower clamp in both packages; JAX's float32 key-0 run stays off it
 # (PERF.md, section 6).
@@ -2781,6 +2803,207 @@ def finish_validate_int8(started):
     return dict(res, args=VALIDATE_INT8_ARGS, wall_s=wall, train_log=steps)
 
 
+# ------------------------------------------------------------ multi-device
+MD_RANKS = 2  # gloo ranks, all on cuda:0 (NCCL refuses two ranks on one card)
+MD_SCENES, MD_EPOCHS = 2, 1
+MD_HALO = 96  # the runfiles' spatial_halo default
+MD_TIMEOUT = 600.0  # seconds for the whole spawn
+
+
+def _md_slab(frame):
+    """The per-rank SSIM slab of the sharded eval at a packed frame
+    ``(H, W, 4)``: H rows, this rank's ``Wp / 2`` columns plus 6."""
+    from pnnp_tpu_torch.train.steps import pad_split
+
+    H, W, C = frame
+    pl, pr = pad_split(W, 16 * MD_RANKS)
+    return H, (W + pl + pr) // MD_RANKS + 6, C
+
+
+def _md_paths(rank, dev, plan):
+    """The sharded main path through the entry points a user calls:
+    ``trainer.main --mode train`` of ELD.yml (its eval legs and ``evaltest``
+    through the sharded fused step) and ``trainer_nf.main --kind
+    noise_flow`` of NoiseFlow.yml, each one short epoch, under these ranks."""
+    import pnnp_tpu_torch.trainer as T
+    import pnnp_tpu_torch.trainer_nf as NF
+
+    out = {}
+    os.chdir(plan["eld_root"])
+    t0 = time.perf_counter()
+    trainer = T.main(["-f", plan["eld_yml"], "--mode", "train", "--nofig"], device=str(dev))
+    torch.cuda.synchronize()
+    out["eld_wall_s"] = time.perf_counter() - t0
+    _check(trainer.n_data == MD_RANKS and trainer.mesh_spatial.n_spatial == MD_RANKS,
+           f"ELD.yml meshes {trainer.mesh.shape} / {trainer.mesh_spatial.shape}")
+    _check(trainer._fused_eval.__qualname__.startswith("make_eval_metrics_step_sharded"),
+           "ELD.yml eval is not the sharded fused step")
+    out["eld_train_psnr"] = trainer.train_psnr.avg
+    out["eld_eval_psnr"] = trainer.eval_psnr.avg
+    _check(math.isfinite(trainer.train_psnr.avg) and math.isfinite(trainer.eval_psnr.avg),
+           f"ELD.yml under {MD_RANKS} ranks: psnr {out['eld_train_psnr']} / "
+           f"{out['eld_eval_psnr']}")
+    out["eld_params_sum"] = float(sum(p.detach().double().sum() for p in trainer.model.parameters()))
+    del trainer
+    os.chdir(plan["flow_root"])
+    t0 = time.perf_counter()
+    nf = NF.main(["-f", plan["flow_yml"], "--kind", "noise_flow"], device=str(dev))
+    torch.cuda.synchronize()
+    out["flow_wall_s"] = time.perf_counter() - t0
+    out["flow_nll"] = nf.nll_meter.avg
+    _check(math.isfinite(nf.nll_meter.avg), f"NoiseFlow.yml nll {nf.nll_meter.avg}")
+    out["flow_stats_sum"] = float(sum(b.double().sum() for n, b in nf.model.named_buffers()
+                                      if n.endswith("running_var")))
+    del nf
+    torch.cuda.empty_cache()
+    return out
+
+
+def _md_kernel(rank, dev):
+    """The per-rank slab of the sharded step through the SSIM kernel at the
+    two frames: the route is ``hopper``, the sum held to the plain version
+    (rank 0; the launches here are checks, not the path's), timed against
+    its bound and the plain version."""
+    import pnnp_tpu_torch.kernels.ssim as K
+
+    out = {}
+    if rank != 0:
+        return out
+    for name, frame in (("sony", SONY), ("imx686", IMX686)):
+        H, Ws, C = _md_slab(frame)
+        xf, yf = _to_dev(_structured((H, Ws, C), 4), dev)
+        route = K._route(H, Ws * C, C, xf.data_ptr(), yf.data_ptr())
+        _check(route == "hopper", f"sharded slab {name} [{H}, {Ws * C}] takes the {route} route")
+        n = C * (H - 6) * (Ws - 6)
+        got, ref = float(K.ssim_flat_sum(xf, yf, C)), float(K.ssim_sum_plain(
+            xf.reshape(H, Ws, C), yf.reshape(H, Ws, C)))
+        err = abs(got - ref) / n
+        _check(err < TOL, f"sharded slab {name}: kernel sum {got} vs plain {ref}")
+        bytes_moved = 2 * xf.numel() * 4 + 8
+        ops = (H - 6) * (Ws - 6) * C * SSIM_OPS_PER_WINDOW + xf.numel() * 3
+        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        out[name] = {
+            "slab": [H, Ws * C], "route": route, "max_abs_err": err,
+            "ms": _loop_ms(_launcher(K, xf, yf, C, "hopper"), warmup=5, iters=100),
+            "plain_ms": _loop_ms(lambda: K.ssim_flat_plain(xf, yf, C), warmup=2, iters=10),
+            "bytes": bytes_moved, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"multidevice: ssim slab {name} [{H}, {Ws * C}] hopper "
+              f"{out[name]['ms'] * 1e3:.1f} us (bound {out[name]['bound_ms'] * 1e3:.1f} us), "
+              f"|kernel - plain| {err:.2e}", flush=True)
+    return out
+
+
+def _md_rank(rank, store, out_dir, plan):
+    """One rank of phase_multidevice: gloo on cuda:0; writes its results to
+    ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+
+    import pnnp_tpu_torch.kernels.ssim as K
+    import pnnp_tpu_torch.tools.multidevice as MD
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=MD_RANKS)
+    try:
+        res = {"backend": dist.get_backend(), "device": str(dev)}
+        # the path: every count set to 0 just before, read just after
+        torch.cuda.synchronize()
+        K.launches = 0
+        K.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+        res["paths"] = _md_paths(rank, dev, plan)
+        torch.cuda.synchronize()
+        res["launches"] = {"ssim": K.launches, "by_route": dict(K.launches_by_route)}
+        # the sharded eval at the full frames against the single-device
+        # step, the data-parallel train step against the one-rank step
+        res["eval"] = MD.eval_check(dev, {"sony": SONY[:2], "imx686": IMX686[:2]},
+                                    halo=MD_HALO)
+        res["train_step"] = MD.train_step_check(dev, CROPS, PATCH, 32)
+        res["kernel"] = _md_kernel(rank, dev)
+        dist.barrier()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multidevice(dev):
+    """ROADMAP 1.16 on the card: MD_RANKS gloo ranks, spawned, all on
+    cuda:0. The path (``_md_paths``), the sharded eval at the full frames
+    against the single-device step and the data-parallel train step against
+    the one-rank step (``pnnp_tpu_torch/tools/multidevice.py``'s checks),
+    and the per-rank SSIM slab (``_md_kernel``). Returns (SSIM launches of
+    the path summed over the ranks, results)."""
+    import multiprocessing as mp
+
+    import yaml
+
+    from pnnp_tpu_torch.data.fixtures import make_sid_fixture, place_eval_split
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pnnp_multidevice_") as root:
+        t0 = time.perf_counter()
+        infos = make_sid_fixture(root, n_scenes=MD_SCENES, H=MOSAIC_H, W=MOSAIC_W)
+        place_eval_split(root, infos, 250)
+        plan = {}
+        eld = _train_runfile(root)
+        eld["hyper"]["stop_epoch"] = MD_EPOCHS
+        eld_root = os.path.join(root, "eld")
+        os.makedirs(eld_root)
+        flow_root = os.path.join(root, "flow")
+        os.makedirs(flow_root)
+        flow = _recipe_runfile("SonyA7S2/NoiseFlow", flow_root, root, epochs=MD_EPOCHS)
+        for key, run, where in (("eld", eld, eld_root), ("flow", flow, flow_root)):
+            plan[f"{key}_yml"] = os.path.join(where, "run.yml")
+            plan[f"{key}_root"] = where
+            with open(plan[f"{key}_yml"], "w") as f:
+                yaml.safe_dump(run, f)
+        print(f"multidevice: {MD_RANKS} gloo ranks on cuda:0 (NCCL refuses two ranks on "
+              f"one card); fixture in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        ctx = mp.get_context("spawn")
+        store = os.path.join(root, "store")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_md_rank, args=(r, store, root, plan))
+                 for r in range(MD_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + MD_TIMEOUT
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.0))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        _check([p.exitcode for p in procs] == [0] * MD_RANKS,
+               f"multidevice ranks exited {[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(MD_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    by_route = {route: sum(r["launches"]["by_route"][route] for r in ranks)
+                for route in ranks[0]["launches"]["by_route"]}
+    launches = {"ssim": sum(r["launches"]["ssim"] for r in ranks), "by_route": by_route}
+    _check(launches["ssim"] > 0 and by_route["hopper"] == launches["ssim"],
+           f"sharded path SSIM launches {launches}: none, or not all hopper")
+    paths = [r["paths"] for r in ranks]
+    _check(len({p["eld_params_sum"] for p in paths}) == 1
+           and len({p["flow_stats_sum"] for p in paths}) == 1,
+           f"the ranks' trained params or batch stats differ: {paths}")
+    result = {"ranks": MD_RANKS, "backend": ranks[0]["backend"], "device": ranks[0]["device"],
+              "wall_s": wall, "launches": launches, "paths": paths,
+              "eval": ranks[0]["eval"], "train_step": ranks[0]["train_step"],
+              "kernel": ranks[0]["kernel"]}
+    print(f"multidevice: {MD_RANKS} ranks in {wall:.1f} s, backend {result['backend']}; "
+          f"launches {launches}; eval {json.dumps(result['eval'])}; "
+          f"train step {json.dumps(result['train_step'])}", flush=True)
+    return launches, result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2839,6 +3062,7 @@ def main() -> int:
     int8_launches, int8_runs = phase_int8_eval(dev, vint8_ckpt)
     vint8_dir.cleanup()
     packed_timings = phase_packed_timings(dev, batch)
+    md_launches, multidevice = phase_multidevice(dev)
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
     timings.update(train_main_path=train_run, train_step_check=step_check,
@@ -2849,14 +3073,16 @@ def main() -> int:
                                   **flow_timings),
                    eval_paths=eval_paths, ab_reduced=ab,
                    packed_int8=dict(checks=packed_checks, **int8_runs, ab=packed_timings,
-                                    validate_int8=vint8))
+                                    validate_int8=vint8),
+                   multidevice=multidevice)
 
     # one row per SSIM route: the main path's (hopper) and the first version
     # (generic, rgb_quality's route); launches of each path's run (the eval
     # run, the train run's, the PNNP run's, the baseline runs' and the NF.yml
     # runs' eval legs, the rgb, unfused, LED and predict runs) and their sum
     by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches,
-               **base_launches, **flow_launches, **eval_launches, **int8_launches}
+               **base_launches, **flow_launches, **eval_launches, **int8_launches,
+               "sharded": md_launches}
     kernels = [dict(
         name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
         replaces="pnnp_tpu/kernels/ssim.py:39",

@@ -592,10 +592,17 @@ DATASET_REGISTRY = {
     "TestDataset": TestDataset,
 }
 
-# Datasets of the JAX package this port does not carry yet
-# (pnnp_tpu/data/extra.py and the Multi_* mixers of its build_dataset).
-_NOT_PORTED = ("Img_Dataset", "Multi_Real_Dataset", "Multi_Sync_Dataset",
-               "Multi_Mix_Dataset", "Multi_Uproc_Dataset")
+# The Multi_* indoor + X mixers (reference data_process/__init__.py:42-141,
+# as the JAX package's build_dataset): name -> (base dataset, extra
+# dataset). The base is the 'indoor' variant at the full crop_per_image, the
+# extra the configured dstname at crop_per_image // 4, mixed through
+# MixedSubsetDataset (the concat-4 form: one leading crop dim per item).
+_MULTI_MIXER_MAP = {
+    "Multi_Real_Dataset": ("Real_Dataset", "Real_Dataset"),
+    "Multi_Sync_Dataset": ("Img_Dataset", "Mix_Dataset"),
+    "Multi_Mix_Dataset": ("Mix_Dataset", "Mix_Dataset"),
+    "Multi_Uproc_Dataset": ("Img_Dataset", "Img_Dataset"),
+}
 
 
 def build_dataset(dst: dict, seed: int = 1997):
@@ -610,10 +617,23 @@ def build_dataset(dst: dict, seed: int = 1997):
         subs = [build_dataset(dict(dst, dataset=n, dstname=d), seed=seed)
                 for n, d in zip(dst["datasets"], dst["dstnames"])]
         return MultiDataset(subs)
-    if name in _NOT_PORTED:
-        raise KeyError(
-            f"dataset '{name}' is not ported yet (ROADMAP 1.11: the rest, "
-            "Img_Dataset and the Multi_* mixers of data/extra.py)")
+    from pnnp_tpu_torch.data.extra import ImgDataset, MixedSubsetDataset
+
+    registry["Img_Dataset"] = ImgDataset
+    if name in _MULTI_MIXER_MAP:
+        base_name, extra_name = _MULTI_MIXER_MAP[name]
+        dstname = dst.get("dstname", "indoor")
+        base_args = dict(dst, dataset=base_name, dstname="indoor")
+        if isinstance(base_args.get("root_dir"), str) and dstname != "indoor":
+            base_args["root_dir"] = base_args["root_dir"].replace(dstname, "indoor")
+        cpi = int(dst.get("crop_per_image", 8))
+        if cpi % 4 != 0:
+            raise ValueError(
+                f"{name}: crop_per_image={cpi} must be divisible by the extra_rate=4 "
+                "mixing contract (data_process/__init__.py:76-87)")
+        extra_args = dict(dst, dataset=extra_name, crop_per_image=cpi // 4)
+        return MixedSubsetDataset(build_dataset(base_args, seed=seed),
+                                  build_dataset(extra_args, seed=seed), extra_rate=4)
     if name not in registry:
         raise KeyError(f"unknown dataset '{name}'")
     return registry[name](dst, seed=seed)

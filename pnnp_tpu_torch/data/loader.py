@@ -8,12 +8,19 @@ mirrors the reference's worker_init_fn: each worker reseeds its thread-local
 dataset RNG deterministically from (base_seed, epoch, worker); batches are
 assigned to workers round-robin, so multi-worker epochs are reproducible
 regardless of thread scheduling.
+
+Under several data-parallel ranks (``shard=(rank, n)``) every rank draws the
+same shuffle order (from ``seed + epoch``) and loads only its contiguous
+block of each global batch's indices, rank ``r`` the ``r``-th ``1/n`` (a
+batch of fewer indices wrap-padded to a multiple of ``n`` first, as
+``DataParallel`` scatters an uneven batch); its workers reseed from
+``(seed, epoch, rank * workers + worker)``, so no two ranks draw alike.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -36,12 +43,20 @@ def collate(samples: list) -> dict:
     return out
 
 
+def _rank_block(b: np.ndarray, rank: int, n: int) -> np.ndarray:
+    """Rank ``rank``'s contiguous ``1/n`` of the indices ``b``, wrap-padded
+    to a multiple of ``n``."""
+    padded = b[np.arange(len(b) + (-len(b)) % n) % len(b)]
+    m = len(padded) // n
+    return padded[rank * m:(rank + 1) * m]
+
+
 class DataLoader:
     """Iterable over shuffled batches with background prefetch."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
                  num_workers: int = 2, prefetch: int = 4, seed: int = 1997,
-                 drop_last: bool = False):
+                 drop_last: bool = False, shard: Optional[tuple] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -49,6 +64,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.drop_last = drop_last
+        self.shard = shard
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -61,7 +77,17 @@ class DataLoader:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         bs = self.batch_size
         stop = (n // bs) * bs if self.drop_last else n
-        return [idx[i : i + bs] for i in range(0, stop, bs) if len(idx[i : i + bs])]
+        batches = [idx[i : i + bs] for i in range(0, stop, bs) if len(idx[i : i + bs])]
+        if self.shard is not None:
+            rank, k = self.shard
+            batches = [_rank_block(b, rank, k) for b in batches]
+        return batches
+
+    def _reseed(self, worker: int):
+        if hasattr(self.dataset, "reseed_worker"):
+            if self.shard is not None:
+                worker += self.shard[0] * max(self.num_workers, 1)
+            self.dataset.reseed_worker(self.seed, self.epoch, worker)
 
     def __len__(self):
         n = len(self.dataset)
@@ -70,8 +96,7 @@ class DataLoader:
     def __iter__(self) -> Iterator[dict]:
         batches = self._index_batches()
         if self.num_workers == 0:
-            if hasattr(self.dataset, "reseed_worker"):
-                self.dataset.reseed_worker(self.seed, self.epoch, 0)
+            self._reseed(0)
             for b in batches:
                 yield collate([self.dataset[int(i)] for i in b])
             return
@@ -95,8 +120,7 @@ class DataLoader:
         prefetch = max(1, self.prefetch)
 
         def worker(w: int):
-            if hasattr(self.dataset, "reseed_worker"):
-                self.dataset.reseed_worker(self.seed, self.epoch, w)
+            self._reseed(w)
             for bi in range(w, len(batches), self.num_workers):
                 with cond:
                     while not state["stop"] and bi >= state["yielded"] + prefetch:

@@ -1,4 +1,4 @@
-from pnnp_tpu_torch.models.unet import UNetSeeInDark
+from pnnp_tpu_torch.models.unet import DeepResUNet, DeepUNet, ResidualBlock, ResUNet, UNetSeeInDark
 from pnnp_tpu_torch.models.proxy import HeadParams, PixelWiseISOProxy, QuantileHead
 from pnnp_tpu_torch.models.noise_flow import NoiseFlow
 from pnnp_tpu_torch.models.registry import build_model, build_proxy, load_proxy_jax, proxy_to_jax

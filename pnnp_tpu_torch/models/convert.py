@@ -133,8 +133,10 @@ def flax_to_torch_state(params: Mapping[str, Any],
 
 def params_from_jax(params: Mapping[str, Any]) -> dict:
     """JAX parameter tree (numpy leaves, flax layout) -> ``state_dict`` of
-    float32 CPU tensors for :class:`pnnp_tpu_torch.models.UNetSeeInDark`
-    (``load_state_dict`` casts them to the module's dtype and device)."""
+    float32 CPU tensors for a module of the UNet family
+    (:mod:`pnnp_tpu_torch.models.unet`; nested blocks nest by name, as
+    ``conv1.conv1.weight``); ``load_state_dict`` casts them to the module's
+    dtype and device."""
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in flax_to_torch_state(params).items()}
 

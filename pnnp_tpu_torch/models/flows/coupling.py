@@ -33,7 +33,16 @@ class FlaxBatchNorm(nn.Module):
     running averages. ``weight`` is flax's ``scale``. The normalization is
     torch's fused batch norm, which computes flax's biased variance in two
     passes where flax takes ``E[x^2] - E[x]^2``: the same statistic, with
-    fewer digits lost."""
+    fewer digits lost.
+
+    ``data_mean``, set by the data-parallel noise step
+    (:func:`~pnnp_tpu_torch.parallel.bind_data_group`), maps this rank's
+    moments to the data group's mean, with gradient: the train-mode moments
+    are then the global batch's, as flax's under SPMD jit, taken as flax
+    takes them (``E[x]`` and ``E[x^2]``, the variance ``E[x^2] - E[x]^2``),
+    and the running averages move alike on every rank."""
+
+    data_mean = None
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -44,15 +53,29 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x, train: bool = False):
+        if train and self.data_mean is not None:
+            return self._forward_group(x)
         if train:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self._update_running(mean, var)
             return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             False, 0.0, self.eps)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def _forward_group(self, x):
+        mean, mean2 = self.data_mean(torch.stack([x.mean(dim=(0, 2, 3)),
+                                                  (x * x).mean(dim=(0, 2, 3))]))
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        self._update_running(mean.detach(), var.detach())
+        view = lambda t: t.reshape(1, -1, 1, 1)
+        return (x - view(mean)) * view(torch.rsqrt(var + self.eps) * self.weight) + view(self.bias)
 
 
 class ShiftAndLogScale(nn.Module):

@@ -325,7 +325,13 @@ class PixelWiseISOProxy(nn.Module):
     batch, 'empirical'), ``smooth_iso_w`` / ``smooth_iso_grid`` (opt-in
     ISO-curvature penalty), ``zero_mean`` (:meth:`QuantileHead.center` on
     both heads).
+
+    ``data_mean``: set by the data-parallel noise step
+    (:func:`~pnnp_tpu_torch.parallel.bind_data_group`), see
+    :meth:`_weight_total`.
     """
+
+    data_mean = None
 
     def __init__(self, iso2k: Sequence[float] = (0.0009546, -0.00193), nf: int = 16,
                  nb: int = 2, d: int = 1024, mode: str = "2stage+iso",
@@ -459,7 +465,7 @@ class PixelWiseISOProxy(nn.Module):
             lp_px = QuantileHead.log_prob_conv_gaussian(hp_px, resid, self.smooth_s0)
         else:
             lp_px = QuantileHead.log_prob(hp_px, resid)
-        nll_px = -torch.sum(lp_px * w) / torch.clamp_min(torch.sum(w), 1e-6)
+        nll_px = -torch.sum(lp_px * w) / self._weight_total(w)
         if hp_row is not None:
             n = x.shape[0]
             if self.contam == "empirical":
@@ -475,12 +481,22 @@ class PixelWiseISOProxy(nn.Module):
             s_contam = torch.sqrt(var_px / wsum_row)
             lp_row = QuantileHead.log_prob_conv_gaussian(hp_row, row_mean, s_contam)
             w_rows = torch.mean(w, dim=3, keepdim=True)
-            nll_row = -torch.sum(lp_row * w_rows) / torch.clamp_min(torch.sum(w_rows), 1e-6)
+            nll_row = -torch.sum(lp_row * w_rows) / self._weight_total(w_rows)
         else:
             nll_row = torch.zeros((), device=x.device)
         # the row term weighs by its share of draws (one per row of W pixels)
         w_row = 1.0 / max(noise.shape[3], 1)
         return nll_px + w_row * nll_row, {"nll_px": nll_px, "nll_row": nll_row}
+
+    def _weight_total(self, w):
+        """The denominator of a masked mean: the weights' sum, or with
+        ``data_mean`` set (the data-parallel step) the data group's mean of
+        the ranks' sums, so that the ranks' mean loss is the global batch's
+        masked mean."""
+        total = torch.sum(w)
+        if self.data_mean is not None:
+            total = self.data_mean(total)
+        return torch.clamp_min(total, 1e-6)
 
     def sample(self, clean, iso, generator: torch.Generator):
         return self(clean, iso, generator=generator, mode="sample")

@@ -1,6 +1,6 @@
 """Model registry: YAML ``arch.name`` -> ``nn.Module`` (counterpart of
-``pnnp_tpu/models/registry.py``). Only ``UNetSeeInDark`` is ported; the
-rest of the family waits for ROADMAP 1.13. :func:`build_proxy` builds the
+``pnnp_tpu/models/registry.py``): the UNet family under the reference's
+names and the JAX package's. :func:`build_proxy` builds the
 noise model of a runfile's ``arch_proxy`` block (the ``pw_iso_2stage`` proxy
 or NoiseFlow); :func:`load_proxy_jax` and :func:`proxy_to_jax` move its
 weights to and from the JAX checkpoint trees."""
@@ -19,11 +19,17 @@ from pnnp_tpu_torch.models.convert import (
 )
 from pnnp_tpu_torch.models.noise_flow import ARCH, NoiseFlow
 from pnnp_tpu_torch.models.proxy import PixelWiseISOProxy
-from pnnp_tpu_torch.models.unet import UNetSeeInDark
+from pnnp_tpu_torch.models.unet import DeepResUNet, DeepUNet, ResUNet, UNetSeeInDark
 
-_REGISTRY = {"UNetSeeInDark": UNetSeeInDark}
-_NOT_PORTED = ("DeepUnet", "DeepUNet", "ResUnet", "ResUNet", "DeepResUnet",
-               "DeepResUNet")
+_REGISTRY = {
+    "UNetSeeInDark": UNetSeeInDark,
+    "DeepUnet": DeepUNet,
+    "DeepUNet": DeepUNet,
+    "ResUnet": ResUNet,
+    "ResUNet": ResUNet,
+    "DeepResUnet": DeepResUNet,
+    "DeepResUNet": DeepResUNet,
+}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "bf16": torch.bfloat16}
@@ -39,8 +45,6 @@ def build_model(arch: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
     N(0, 0.02) init. The module is built on the CPU: move it with ``.to``.
     """
     name = arch["name"]
-    if name in _NOT_PORTED:
-        raise KeyError(f"arch '{name}' is not ported yet (ROADMAP 1.13)")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch '{name}'; known: {sorted(_REGISTRY)}")
     if dtype is None:

@@ -4,7 +4,19 @@ from pnnp_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from pnnp_tpu_torch.train.losses import charbonnier_loss, l1_loss, unet_loss
+from pnnp_tpu_torch.train.losses import (
+    charbonnier_loss,
+    gan_loss,
+    grad_loss,
+    gradient,
+    l1_loss,
+    psnr_loss,
+    pyramid_loss,
+    pyramid_sample,
+    unet_dpsv_loss,
+    unet_dpsv_up_loss,
+    unet_loss,
+)
 from pnnp_tpu_torch.train.schedules import (
     build_lr_schedule,
     cosine_warm_restart,

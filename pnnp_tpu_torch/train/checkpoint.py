@@ -63,7 +63,11 @@ def load_any(path: str) -> dict:
 class CheckpointManager:
     """last/best rolling checkpoints + periodic saves (reference contract)."""
 
-    def __init__(self, fast_dir: str, model_dir: str, model_name: str, save_freq: int = 10):
+    def __init__(self, fast_dir: str, model_dir: str, model_name: str, save_freq: int = 10,
+                 writer: bool = True):
+        # writer False (the ranks but 0 of a multi-rank run): save() keeps
+        # the best-PSNR bookkeeping and writes nothing
+        self.writer = writer
         self.fast_dir = fast_dir
         self.model_dir = model_dir
         self.model_name = model_name
@@ -83,12 +87,14 @@ class CheckpointManager:
 
     def save(self, epoch: int, params, batch_stats=None, eval_psnr: Optional[float] = None):
         meta = {"epoch": epoch, "eval_psnr": eval_psnr}
-        save_checkpoint(self.last_path(), params, batch_stats, meta)
+        write = (lambda path: save_checkpoint(path, params, batch_stats, meta)
+                 if self.writer else None)
+        write(self.last_path())
         if epoch % self.save_freq == 0:
-            save_checkpoint(self.epoch_path(epoch), params, batch_stats, meta)
+            write(self.epoch_path(epoch))
         if eval_psnr is not None and eval_psnr > self.best_psnr:
             self.best_psnr = eval_psnr
-            save_checkpoint(self.best_path(), params, batch_stats, meta)
+            write(self.best_path())
             return True
         return False
 

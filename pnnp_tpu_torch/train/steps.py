@@ -41,7 +41,7 @@ from pnnp_tpu_torch.physics.noise import (
     sna,
 )
 from pnnp_tpu_torch.physics.sampling import sample_params_max
-from pnnp_tpu_torch.train.losses import unet_loss
+from pnnp_tpu_torch.train.losses import unet_dpsv_loss, unet_loss
 from pnnp_tpu_torch.train.state import apply_scaled_updates
 
 
@@ -310,22 +310,33 @@ class TrainStep:
     so the gradients land on the standard parameters. L1 and MSE do not see
     the permutation: loss and psnr are the unpacked step's.
 
+    ``deep_supervision=True`` (the deep-supervised archs, ``use_dpsv``;
+    ``pnnp_tpu/train/steps.py:307-325``) calls ``model(lr, train=True)`` for
+    its ``(out, out2, out4, out8)`` and trains on
+    :func:`~pnnp_tpu_torch.train.losses.unet_dpsv_loss`; ``psnr`` scores
+    ``out``.
+
     The module forward runs on parameters in ``memory_format`` memory,
     moved there in place at the first step: by default
     :data:`BF16_MEMORY_FORMAT` in bf16, f32 as they come.
 
-    The stages are methods so that they can be timed one by one:
-    :meth:`make_pair`, :meth:`forward_backward`, :meth:`update`.
+    The stages are methods so that they can be timed one by one (and the
+    data-parallel step can run between them): :meth:`make_pair`,
+    :meth:`forward_backward`, :meth:`update`, :meth:`metrics`.
     """
 
     def __init__(self, lr_schedule: Callable, synth: Callable = identity_synth,
                  clip_mode=0, bf16: bool = False, packed: bool = False,
-                 memory_format: Optional[torch.memory_format] = None):
+                 memory_format: Optional[torch.memory_format] = None,
+                 deep_supervision: bool = False):
+        if deep_supervision and packed:
+            raise ValueError("the packed step has no deep-supervision heads")
         self.lr_schedule = lr_schedule
         self.synth = synth
         self.clip_mode = clip_mode
         self.bf16 = bf16
         self.packed = packed
+        self.deep_supervision = deep_supervision
         if memory_format is None and bf16 and not packed:
             memory_format = BF16_MEMORY_FORMAT
         self.memory_format = memory_format
@@ -349,28 +360,40 @@ class TrainStep:
             loss = unet_loss(pred, hr_img)
         elif self.bf16:
             with torch.autocast(lr_img.device.type, dtype=torch.bfloat16):
-                pred = model(lr_img)
-                loss = unet_loss(pred, hr_img)
+                pred, loss = self._loss(model, lr_img, hr_img)
         else:
             _exact_f32(model)
-            pred = model(lr_img)
-            loss = unet_loss(pred, hr_img)
+            pred, loss = self._loss(model, lr_img, hr_img)
         loss.backward()
         return loss.detach(), pred.detach()
+
+    def _loss(self, model, lr_img, hr_img):
+        if self.deep_supervision:
+            outs = model(lr_img, train=True)
+            return outs[0], unet_dpsv_loss(outs, hr_img)
+        pred = model(lr_img)
+        return pred, unet_loss(pred, hr_img)
 
     def update(self, opt, epoch) -> float:
         lr = float(self.lr_schedule(epoch))
         apply_scaled_updates(opt, lr)
         return lr
 
+    @torch.no_grad()
+    def metrics(self, loss, pred, hr_img, lr: float, reduce: Optional[Callable] = None) -> dict:
+        """``loss``, ``psnr`` of the clipped prediction and ``lr``; ``reduce``
+        maps the stacked ``(loss, mse)`` to their global values (the
+        data-parallel step's mean over ranks)."""
+        mse = torch.mean((pred.clamp(0.0, 1.0) - hr_img.clamp(0.0, 1.0)) ** 2)
+        if reduce is not None:
+            loss, mse = reduce(torch.stack([loss.float(), mse.float()]))
+        psnr = 10.0 * torch.log10(1.0 / mse.clamp_min(1e-12))
+        return {"loss": loss, "psnr": psnr, "lr": lr}
+
     def __call__(self, model, opt, batch, generator, epoch) -> dict:
         lr_img, hr_img = self.make_pair(batch, generator)
         loss, pred = self.forward_backward(model, lr_img, hr_img)
-        lr = self.update(opt, epoch)
-        with torch.no_grad():
-            mse = torch.mean((pred.clamp(0.0, 1.0) - hr_img.clamp(0.0, 1.0)) ** 2)
-            psnr = 10.0 * torch.log10(1.0 / mse.clamp_min(1e-12))
-        return {"loss": loss, "psnr": psnr, "lr": lr}
+        return self.metrics(loss, pred, hr_img, self.update(opt, epoch))
 
 
 def make_train_step(lr_schedule: Callable, synth: Callable = identity_synth,
@@ -378,11 +401,8 @@ def make_train_step(lr_schedule: Callable, synth: Callable = identity_synth,
                     bf16: bool = False, packed: bool = False,
                     memory_format: Optional[torch.memory_format] = None) -> TrainStep:
     """Build the train step (see :class:`TrainStep`)."""
-    if deep_supervision:
-        raise NotImplementedError(
-            "deep supervision (use_dpsv) training is not ported yet (ROADMAP 1.13)")
     return TrainStep(lr_schedule, synth, clip_mode=clip_mode, bf16=bf16, packed=packed,
-                     memory_format=memory_format)
+                     memory_format=memory_format, deep_supervision=deep_supervision)
 
 
 def pad_split(n: int, mult: int = 16):

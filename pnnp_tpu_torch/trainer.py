@@ -53,9 +53,24 @@ inference.
 while they accrue; the weights are quantized once per parameter version and
 serve from frame N on.
 
-Not ported yet, and raising ``NotImplementedError`` with its ROADMAP item:
-deep supervision (1.13); the ``Img_Dataset`` and ``Multi_*`` datasets raise
-``KeyError`` naming the rest of 1.11.
+The whole UNet family trains (``DeepUNet``, ``ResUNet``, ``DeepResUNet``;
+``use_dpsv`` on the deep-supervised archs, through the deep-supervision
+loss); as in JAX, only UNetSeeInDark without ``use_dpsv`` evaluates through
+the fused step, every other arch through the unfused branch.
+
+Several ranks (``torchrun --nproc_per_node=N -m pnnp_tpu_torch.trainer
+...``; :func:`main` initializes the process group from the environment,
+:func:`~pnnp_tpu_torch.parallel.init_distributed`) run the JAX Trainer's
+meshes (``pnnp_tpu/trainer.py:173-233``): training is data-parallel over
+every rank (or ``world / mesh_spatial`` ranks of a ``mesh_spatial: K``
+runfile), each rank loading its block of every global batch and the
+gradients averaged before Adam; eval is width-sharded over every rank (or
+the ``K`` ranks of a row), the fused step's
+:func:`~pnnp_tpu_torch.parallel.make_eval_metrics_step_sharded` with
+``spatial_halo`` columns (default 96), the unfused branch's
+:func:`~pnnp_tpu_torch.parallel.spatial_eval_auto`. Each rank of a row
+loads the whole eval frame and keeps its columns. Rank 0 alone logs and
+writes the metrics pickle, checkpoints and figures.
 """
 
 from __future__ import annotations
@@ -83,6 +98,18 @@ from pnnp_tpu_torch.kernels.ssim import ssim_kernel
 from pnnp_tpu_torch.models.unet_s2d import s2d
 from pnnp_tpu_torch.ops import fast_isp, illuminance_correct, psnr, raw2bayer, tiled_apply
 from pnnp_tpu_torch.ops.metrics import rgb_quality
+from pnnp_tpu_torch.parallel import (
+    barrier,
+    init_distributed,
+    loader_shard,
+    make_eval_metrics_step_sharded,
+    make_mesh,
+    make_sharded_train_step,
+    place_batch,
+    rank_seed,
+    replicate,
+    spatial_eval_auto,
+)
 from pnnp_tpu_torch.train import (
     CheckpointManager,
     build_lr_schedule,
@@ -101,7 +128,7 @@ from pnnp_tpu_torch.train import (
     params_key,
 )
 from pnnp_tpu_torch.utils.device import resolve_device
-from pnnp_tpu_torch.utils.logging import AverageMeter, StepTimer, log
+from pnnp_tpu_torch.utils.logging import AverageMeter, StepTimer, is_main_process, log
 
 _TRAIN_MODES = ("train", "trainonly")
 
@@ -177,6 +204,7 @@ class Trainer:
         self.debug = debug
         self.seed = seed
         self.training = self.mode in _TRAIN_MODES
+        self._make_meshes()
 
         self.logfile = f"./logs/log_{self.model_name}.log"
         self.sample_dir = os.path.join(self.args.get("result_dir", "images"),
@@ -208,6 +236,7 @@ class Trainer:
             self.args.get("checkpoint", "saved_model"),
             self.model_name,
             save_freq=self.hyper.get("save_freq", 10),
+            writer=is_main_process(),
         )
         self.ckpt.best_psnr = self.hyper.get("best_psnr", 0)
         self.last_epoch = int(self.hyper.get("last_epoch", 0))
@@ -240,16 +269,28 @@ class Trainer:
         self.synth = self._make_synth()
         self.train_step = self.opt = None
         if self.training:
+            dpsv = bool(self.arch.get("use_dpsv", False))
+            if dpsv and not hasattr(self.model, "out2"):
+                raise ValueError(
+                    f"use_dpsv needs an arch with deep-supervision heads (DeepUNet, "
+                    f"DeepResUNet), not {self.arch['name']}")
             self.train_step = make_train_step(
                 self.lr_schedule, self.synth, clip_mode=self.dst.get("clip", 0),
-                deep_supervision=bool(self.arch.get("use_dpsv", False)), bf16=fast,
-                packed=self._use_packed)
+                deep_supervision=dpsv, bf16=fast, packed=self._use_packed)
+            self._base_train_step = self.train_step  # unsharded (parity tests)
+            self.train_step = make_sharded_train_step(self.mesh, self.train_step)
             self.opt = make_adam(self.model.parameters())
+        self._place_state()
 
         # --- eval steps ----------------------------------------------------
+        # the fused step serves UNetSeeInDark without deep supervision, as
+        # JAX's (pnnp_tpu/trainer.py:196-233); every other arch the unfused
+        # branch
         self.eval_step = make_eval_step(self.eval_model)
-        self._fused_eval = (None if self.args.get("disable_fused_eval", False)
-                            else make_eval_metrics_step(self.eval_model))
+        fused_arch = (self.arch.get("name") == "UNetSeeInDark"
+                      and not self.arch.get("use_dpsv", False))
+        self._fused_eval = (self._metrics_step() if fused_arch
+                            and not self.args.get("disable_fused_eval", False) else None)
         self._int8_cache = {"key": None, "step": None, "cal": []}
 
         # --- meters --------------------------------------------------------
@@ -262,6 +303,54 @@ class Trainer:
         self.eval_ssim_dn = AverageMeter("SSIM", ":4f")
         self.timer = StepTimer()
         self._print_model_log()
+
+    def _make_meshes(self):
+        """The JAX Trainer's meshes (``pnnp_tpu/trainer.py:173-195``) over
+        the ranks of the process group: training on ``data`` over every
+        rank, eval on ``spatial`` over every rank; a runfile's
+        ``mesh_spatial: K`` (K dividing the world, smaller than it) carves
+        one ``(world / K, K)`` mesh for both. One rank: the 1 x 1 mesh and
+        no spatial mesh."""
+        import torch.distributed as dist
+
+        n_dev = dist.get_world_size() if dist.is_initialized() else 1
+        self.spatial_halo = int(self.args.get("spatial_halo", 96))
+        n_sp = int(self.args.get("mesh_spatial", 0) or 0)
+        if n_sp > 1 and n_dev % n_sp == 0 and n_dev > n_sp:
+            self.mesh = make_mesh(n_data=n_dev // n_sp, n_spatial=n_sp)
+            self.mesh_spatial = self.mesh
+        else:
+            self.mesh = make_mesh()
+            self.mesh_spatial = make_mesh(n_data=1, n_spatial=n_dev) if n_dev > 1 else None
+        self.n_data = self.mesh.n_data
+
+    def _metrics_step(self, qparams=None):
+        """The fused eval step of the serving model: width-sharded over the
+        spatial mesh, single-device without one."""
+        if self.mesh_spatial is None:
+            return make_eval_metrics_step(self.eval_model, qparams=qparams)
+        return make_eval_metrics_step_sharded(self.eval_model, self.mesh_spatial,
+                                              halo=self.spatial_halo, qparams=qparams)
+
+    def _place_state(self):
+        """The master model and the optimizer state broadcast from rank 0
+        (a no-op on one rank): after init and after every checkpoint load,
+        as JAX's ``_place_state``."""
+        if self.mesh.size > 1:  # the optimizer is built after the first restore
+            replicate(self.mesh, [self.model] + ([self.opt] if getattr(self, "opt", None) else []))
+
+    def _place_batch(self, batch: dict) -> dict:
+        """A host batch -> this data rank's rows, where the loader did not
+        split the batch already (:func:`~pnnp_tpu_torch.parallel.place_batch`)."""
+        return batch if self._loader_shard is not None else place_batch(self.mesh, batch)
+
+    def _forward_full(self, lr):
+        """Full-frame denoise: width-sharded with halo exchange over the
+        spatial mesh, the single-device eval step without one."""
+        if self.mesh_spatial is not None:
+            return spatial_eval_auto(self.mesh_spatial, self.eval_step, lr,
+                                     halo=self.spatial_halo)
+        return self.eval_step(lr)
 
     def _new_model(self, dtype):
         """The arch at its N(0, 0.02) init from the trainer's seed, on the device."""
@@ -287,15 +376,20 @@ class Trainer:
             f"LearningRate:\t{self.hyper.get('learning_rate')}",
             f"Epoch:\t\t{self.hyper.get('stop_epoch')}",
             f"Command:\t{cmd.raw} (flags: {sorted(cmd.flags()) or '-'})",
-            f"Devices:\t1 ({self.device}, {str(self.dtype).replace('torch.', '')})",
+            f"Devices:\t{self.mesh.size} ({self.device}, "
+            f"{str(self.dtype).replace('torch.', '')})"
+            + (f", mesh data x spatial {self.mesh.n_data} x {self.mesh.n_spatial}"
+               if self.mesh.size > 1 else ""),
         ]
         for line in lines:
             log(line, logfile=self.logfile, notime=True)
 
     def _load_params(self, params):
         """Copy a JAX parameter tree into the (master) model, in place: the
-        optimizer keeps its parameters and its moments."""
+        optimizer keeps its parameters and its moments; then rank 0's copy
+        goes to every rank."""
         self.model.load_state_dict(params_from_jax(params), strict=True)
+        self._place_state()
 
     def _init_proxy(self, arch_proxy: dict):
         """The noise model of ``arch_proxy`` (the ``pw_iso_2stage`` proxy or
@@ -447,6 +541,7 @@ class Trainer:
         else:
             log("No checkpoint to recover from; re-initialized fresh params")
         self.opt = make_adam(self.model.parameters())
+        self._place_state()
 
     def _refresh_eval_model(self):
         """Serve the master weights: copy them into the eval model when it is
@@ -475,14 +570,17 @@ class Trainer:
     def train(self):
         assert self.dataset_train is not None
         bs = int(self.hyper.get("batch_size", 1))
+        self._loader_shard = loader_shard(self.mesh, bs)
         loader = DataLoader(
             self.dataset_train, batch_size=bs, shuffle=True,
             num_workers=0 if self.debug else int(self.args.get("num_workers", 2)),
-            seed=self.seed,
+            seed=self.seed, shard=self._loader_shard,
         )
         stop_epoch = int(self.hyper.get("stop_epoch", 100))
         plot_freq = int(self.hyper.get("plot_freq", 50))
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        # each data rank synthesizes from its own stream
+        gen = torch.Generator(device=self.device).manual_seed(
+            rank_seed(self.seed, self.mesh.data_rank))
         self.model.train()
 
         for epoch in range(self.last_epoch + 1, stop_epoch + 1):
@@ -493,7 +591,8 @@ class Trainer:
             try:
                 for batch in loader:
                     self.timer.tick("loader")
-                    metrics = self.train_step(self.model, self.opt, self._train_batch(batch),
+                    metrics = self.train_step(self.model, self.opt,
+                                              self._train_batch(self._place_batch(batch)),
                                               gen, epoch)
                     # the step's one sync, inside 'net': the bucket holds the
                     # device time, and 'loader' only the wait for the host
@@ -527,6 +626,7 @@ class Trainer:
                     self.dataset_eval.fast_eval(False)
             is_best = self.ckpt.save(epoch, params_to_jax(self.model.state_dict()),
                                      None, eval_psnr)
+            barrier(self.mesh)  # rank 0's files are complete for every reader
             if is_best:
                 log(f"Best PSNR is {self.ckpt.best_psnr:.2f} now!!")
 
@@ -564,7 +664,8 @@ class Trainer:
             m.reset()
         metrics_path = f"./metrics/{self.model_name}_metrics.pkl"
         metrics = {}
-        if os.path.exists(metrics_path):
+        main = is_main_process()
+        if main and os.path.exists(metrics_path):
             with open(metrics_path, "rb") as f:
                 metrics = pickle.load(f)
 
@@ -585,8 +686,10 @@ class Trainer:
             if fused:
                 step = ((self._int8_eval_step(lr) or self._fused_eval)
                         if self.int8_eval else self._fused_eval)
+                # a sharded step gathers the corrected frame only for figures
+                kw = {"gather": self.save_plot} if self.mesh_spatial is not None else {}
                 out = step(lr, hr, ratio, ori=ori, correct=correct,
-                           with_inputs=self.save_plot)
+                           with_inputs=self.save_plot, **kw)
                 m = out[1]
                 p, s = float(m["psnr"]), float(m["ssim"])
                 if self.save_plot:
@@ -594,7 +697,7 @@ class Trainer:
                     # panels from the step itself (ori-scaled, clipped)
                     dn, lr = (t.reshape(hr.shape) for t in (out[0], out[2]))
             else:
-                dn = self.eval_step(lr)
+                dn = self._forward_full(lr)
                 if ori:
                     lr, dn = lr * ratio, dn * ratio
                 lr, dn = lr.clamp(0, 1), dn.clamp(0, 1)
@@ -625,7 +728,7 @@ class Trainer:
                 self.eval_ssim_lr.update(s_in)
                 self.eval_psnr_dn.update(p_dn)
                 self.eval_ssim_dn.update(s_dn)
-                if epoch < 0:
+                if epoch < 0 and main:
                     self._plot_sample(lr[0], dn[0], hr[0], batch, name, epoch)
             log(f"[{k + 1}/{len(loader)}] {name}: PSNR={p:.2f} SSIM={s:.4f}")
 
@@ -637,7 +740,7 @@ class Trainer:
             f"ssims_lr={self.eval_ssim_lr.avg:.4f}, ssims_dn={self.eval_ssim_dn.avg:.4f}",
             logfile=self.logfile,
         )
-        if epoch < 0:
+        if epoch < 0 and main:
             with open(metrics_path, "wb") as f:
                 pickle.dump(metrics, f)
         self._drain_plots()
@@ -670,7 +773,7 @@ class Trainer:
         log(f"int8: calibrated on {len(c['cal'])} eval frames (pct 99.95), "
             f"{len(qp['layers'])} layers quantized")
         c["cal"] = []
-        c["step"] = make_eval_metrics_step(self.eval_model, qparams=qp)
+        c["step"] = self._metrics_step(qp)
         return c["step"]
 
     @staticmethod
@@ -736,7 +839,7 @@ class Trainer:
                                 num_workers=0)
             for k, batch in enumerate(loader):
                 lr = self._to_device(batch["lr"])
-                dn = self.eval_step(lr)
+                dn = self._forward_full(lr)
                 if ori and "ratio" in batch:  # brighten before clamp
                     r = self._to_device(batch["ratio"]).reshape(-1, 1, 1, 1)
                     lr, dn = lr * r, dn * r
@@ -746,6 +849,8 @@ class Trainer:
                 if correct and "hr" in batch:
                     dn = illuminance_correct(dn, self._to_device(batch["hr"]))
                 name = batch["name"][0] if isinstance(batch["name"], list) else str(batch["name"])
+                if not is_main_process():
+                    continue
                 np.save(os.path.join(out_dir, f"{name}_dn.npy"), dn[0].cpu().numpy())
                 if self.save_plot:
                     self._plot_sample(lr.clamp(0, 1)[0], dn[0],
@@ -779,7 +884,7 @@ class Trainer:
         self._refresh_eval_model()
         out = tiled_apply(self.eval_step, packed, patch_size, base, tile_batch=4)
         out = out.cpu().numpy()
-        if name:
+        if name and is_main_process():
             np.save(f"{name}.npy", out)
         return out
 
@@ -808,8 +913,15 @@ def eval_sweep(trainer, ds, ratios):
 
 def main(argv=None, device=None):
     """CLI entry; runs on ``cuda:<--gpu>`` unless ``device`` names another
-    (``device="cpu"`` for a run on the host). Returns the Trainer."""
+    (``device="cpu"`` for a run on the host). Under ``torchrun`` (a
+    ``WORLD_SIZE`` above 1) it first joins the process group, each rank on
+    ``cuda:<LOCAL_RANK>`` unless ``device`` names one
+    (:func:`~pnnp_tpu_torch.parallel.init_distributed`). Returns the
+    Trainer."""
     p = Parser.parse(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        device = init_distributed(device)
     trainer = Trainer(p.runfile, mode=p.mode, nofig=p.nofig, debug=p.debug,
                       int8=p.int8, device=device or f"cuda:{p.gpu}")
     mode = trainer.mode

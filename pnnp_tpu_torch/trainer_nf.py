@@ -14,12 +14,18 @@ scored by it. Same CLI (``python -m pnnp_tpu_torch.trainer_nf -f runfile
 either package loads in the other and drives ``NF_Syn_Dataset`` /
 ``Proxy_Dataset`` training (``proxy_checkpoint``).
 
-Not ported yet: the data-parallel step over several devices (ROADMAP 1.16).
+Several ranks (``torchrun --nproc_per_node=N -m pnnp_tpu_torch.trainer_nf
+...``) train data-parallel, as ``pnnp_tpu/trainer_nf.py:163-171``: each
+rank loads its block of every batch, the batch statistics (NoiseFlow's
+BatchNorm moments, the proxy's masked-mean denominators) are the global
+batch's, the gradients are averaged before the clip and Adam, and rank 0
+logs and writes the checkpoints. Every rank scores the whole held-out batch.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
@@ -30,6 +36,15 @@ from pnnp_tpu_torch.config import load_runfile
 from pnnp_tpu_torch.data import DataLoader, build_dataset
 from pnnp_tpu_torch.models import build_proxy, proxy_to_jax
 from pnnp_tpu_torch.ops.kld import kl_div_norm_device
+from pnnp_tpu_torch.parallel import (
+    barrier,
+    init_distributed,
+    loader_shard,
+    make_mesh,
+    make_sharded_noise_step,
+    replicate,
+    shard_batch,
+)
 from pnnp_tpu_torch.train import (
     CheckpointManager,
     apply_scaled_updates,
@@ -37,63 +52,83 @@ from pnnp_tpu_torch.train import (
     make_adam,
 )
 from pnnp_tpu_torch.utils.device import resolve_device
-from pnnp_tpu_torch.utils.logging import AverageMeter, log
+from pnnp_tpu_torch.utils.logging import AverageMeter, is_main_process, log
 
 # loaders that emit lr == hr: their noise is synthesized downstream
 _SYNTHETIC = ("NF_Syn_Dataset", "Proxy_Dataset", "IMX686_NF_Syn_Dataset",
               "IMX686_Proxy_Dataset")
 
 
-def make_nf_train_step(nf, lr_schedule, clip_norm: Optional[float] = None):
-    """``step(opt, lr_img, hr_img, ratio, iso, epoch) -> metrics`` for the
-    NoiseFlow ``nf`` whose parameters ``opt`` holds: the per-dim NLL of
-    ``(lr - hr) / ratio`` given ``clean = hr / ratio`` in train mode (the
-    couplings' BatchNorm stats move), then Adam scaled by ``lr(epoch)``.
-    The gradient uses that NLL; the reported ``nll`` is in the unscaled
-    noise domain (``+ mean(log ratio)``, the change of variables, as the
-    reference meter trainer_NF_SID.py:131) and ``sd_z`` is scaled by
-    ``mean(ratio)``. Images NCHW; ``nll``/``sd_z`` 0-dim tensors, ``lr`` a
-    float."""
+class NoiseStep:
+    """``step(opt, lr_img, hr_img, ratio, iso, epoch) -> metrics`` of a noise
+    model: ``loss_fn(lr_img, hr_img, ratio, iso) -> (loss, metrics)``, then
+    the optional global-norm clip (``clip_norm``) and Adam scaled by
+    ``lr(epoch)``. The stages are methods (:meth:`forward_backward`,
+    :meth:`update`) so that the data-parallel step
+    (:func:`~pnnp_tpu_torch.parallel.make_sharded_noise_step`) averages the
+    gradients between them, before the clip. Metrics are detached 0-dim
+    tensors, ``lr`` a float."""
 
-    def step(opt, lr_img, hr_img, ratio, iso, epoch):
-        rb = ratio.reshape(-1, 1, 1, 1)
+    def __init__(self, model, loss_fn, lr_schedule, clip_norm: Optional[float] = None):
+        self.model, self.loss_fn = model, loss_fn
+        self.lr_schedule, self.clip_norm = lr_schedule, clip_norm
+
+    def forward_backward(self, opt, lr_img, hr_img, ratio, iso) -> dict:
         opt.zero_grad(set_to_none=True)
-        nll, sd_z = nf.loss((lr_img - hr_img) / rb, clean=hr_img / rb, iso=iso, train=True)
-        nll.backward()
-        lr = float(lr_schedule(epoch))
-        apply_scaled_updates(opt, lr, clip_norm)
-        return {"nll": nll.detach() + torch.mean(torch.log(ratio)),
-                "sd_z": sd_z.detach() * torch.mean(ratio), "lr": lr}
+        loss, metrics = self.loss_fn(lr_img, hr_img, ratio, iso)
+        loss.backward()
+        return {k: v.detach() for k, v in metrics.items()}
 
-    return step
+    def update(self, opt, epoch) -> float:
+        lr = float(self.lr_schedule(epoch))
+        apply_scaled_updates(opt, lr, self.clip_norm)
+        return lr
+
+    def __call__(self, opt, lr_img, hr_img, ratio, iso, epoch) -> dict:
+        metrics = self.forward_backward(opt, lr_img, hr_img, ratio, iso)
+        return {**metrics, "lr": self.update(opt, epoch)}
+
+
+def make_nf_train_step(nf, lr_schedule, clip_norm: Optional[float] = None) -> NoiseStep:
+    """The :class:`NoiseStep` of the NoiseFlow ``nf`` whose parameters the
+    step's ``opt`` holds: the per-dim NLL of ``(lr - hr) / ratio`` given
+    ``clean = hr / ratio`` in train mode (the couplings' BatchNorm stats
+    move). The gradient uses that NLL; the reported ``nll`` is in the
+    unscaled noise domain (``+ mean(log ratio)``, the change of variables,
+    as the reference meter trainer_NF_SID.py:131) and ``sd_z`` is scaled by
+    ``mean(ratio)``. Images NCHW."""
+
+    def loss_fn(lr_img, hr_img, ratio, iso):
+        rb = ratio.reshape(-1, 1, 1, 1)
+        nll, sd_z = nf.loss((lr_img - hr_img) / rb, clean=hr_img / rb, iso=iso, train=True)
+        return nll, {"nll": nll + torch.mean(torch.log(ratio)),
+                     "sd_z": sd_z * torch.mean(ratio)}
+
+    return NoiseStep(nf, loss_fn, lr_schedule, clip_norm)
 
 
 def make_proxy_train_step(proxy, lr_schedule, dark_thresh: float = 2.0,
-                          clip_norm: Optional[float] = None):
-    """``step(opt, lr_img, hr_img, ratio, iso, epoch) -> metrics`` for the
-    proxy whose parameters ``opt`` (:func:`make_adam`) holds.
+                          clip_norm: Optional[float] = None) -> NoiseStep:
+    """The :class:`NoiseStep` of the proxy whose parameters the step's
+    ``opt`` (:func:`make_adam`) holds.
 
     The learned heads model signal-INDEPENDENT dark noise (sampling re-adds
     exact Poisson shot), so on paired data the NLL is masked to pixels whose
     clean signal is below ``dark_thresh`` ADU; dark frames (clean ~ 0) get
     an all-ones mask. ``clip_norm`` clips the gradients' global norm before
     Adam (``hyper.clip_norm``). Images NCHW; metrics ``nll``, ``nll_px``,
-    ``nll_row`` as 0-dim tensors, ``lr`` as a float.
+    ``nll_row``.
     """
     span = proxy.wp - proxy.bl
 
-    def step(opt, lr_img, hr_img, ratio, iso, epoch):
+    def loss_fn(lr_img, hr_img, ratio, iso):
         rb = ratio.reshape(-1, 1, 1, 1)
         noise = (lr_img - hr_img) / rb
         weight = (hr_img / rb * span < dark_thresh).float()
-        opt.zero_grad(set_to_none=True)
         nll, aux = proxy.loss(noise, iso, weight=weight)
-        nll.backward()
-        lr = float(lr_schedule(epoch))
-        apply_scaled_updates(opt, lr, clip_norm)
-        return {"nll": nll.detach(), "lr": lr, **{k: v.detach() for k, v in aux.items()}}
+        return nll, {"nll": nll, **aux}
 
-    return step
+    return NoiseStep(proxy, loss_fn, lr_schedule, clip_norm)
 
 
 class NFTrainer:
@@ -136,10 +171,17 @@ class NFTrainer:
             self.train_step = make_nf_train_step(self.model, self.lr_schedule, clip_norm)
         self.model.to(self.device)
         self.opt = make_adam(self.model.parameters())
+        # data parallel over every rank of the process group (one rank: the
+        # 1 x 1 mesh, the step itself)
+        self.mesh = make_mesh()
+        replicate(self.mesh, self.model)
+        self._base_train_step = self.train_step  # unsharded (parity tests)
+        self.train_step = make_sharded_noise_step(self.mesh, self.train_step)
         self.ckpt = CheckpointManager(
             self.args.get("fast_ckpt", "checkpoints"),
             self.args.get("checkpoint", "saved_model"),
             self.model_name, save_freq=self.hyper.get("save_freq", 10),
+            writer=is_main_process(),
         )
         self._dataset_train = None
         self.nll_meter = AverageMeter("NLL", ":4f")
@@ -193,25 +235,34 @@ class NFTrainer:
                 f"dst_train dataset {ds_name} yields lr == hr; point it at a "
                 "paired dataset (SID_Dataset / IMX686_Dataset) or a "
                 "bias-frame dataset for noise-model training")
-        loader = DataLoader(
-            self.dataset_train, batch_size=int(self.hyper.get("batch_size", 1)),
-            num_workers=int(self.args.get("num_workers", 2)), seed=self.seed,
-        )
+        bs = int(self.hyper.get("batch_size", 1))
+        workers = int(self.args.get("num_workers", 2))
+        shard = loader_shard(self.mesh, bs)
+        loader = DataLoader(self.dataset_train, batch_size=bs, num_workers=workers,
+                            seed=self.seed, shard=shard)
         stop_epoch = int(self.hyper.get("stop_epoch", 100))
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
 
         # Fixed HELD-OUT scoring batch: epoch 0 is never a training epoch, so
         # its first batch is a deterministic sample the per-epoch shuffles
-        # never reorder; every checkpoint is scored against the same batch.
-        loader.set_epoch(0)
-        heldout = self._to_device(next(iter(loader)))
+        # never reorder; every checkpoint is scored against the same batch,
+        # the whole of it on every rank.
+        whole = DataLoader(self.dataset_train, batch_size=bs, num_workers=workers,
+                           seed=self.seed)
+        whole.set_epoch(0)
+        heldout = self._to_device(next(iter(whole)))
+
+        def local(batch):
+            """This rank's rows (the loader's block, or JAX's shard_batch rule)."""
+            t = self._to_device(batch)
+            return t if shard is not None else shard_batch(self.mesh, t, t[2].shape[0])
 
         for epoch in range(1, stop_epoch + 1):
             self.nll_meter.reset()
             loader.set_epoch(epoch)
             t0 = time.time()
             for batch in loader:
-                m = self.train_step(self.opt, *self._to_device(batch), epoch)
+                m = self.train_step(self.opt, *local(batch), epoch)
                 self.nll_meter.update(float(m["nll"]))
             log(f"Epoch {epoch}: nll/dim={self.nll_meter.avg:.4f} "
                 f"({time.time() - t0:.1f}s)", logfile=self.logfile)
@@ -223,16 +274,21 @@ class NFTrainer:
                     f"inv={float(kld['kl_inv']):.4f} sym={float(kld['kl_sym']):.4f}",
                     logfile=self.logfile)
             self.ckpt.save(epoch, *proxy_to_jax(self.model), eval_psnr=-float(kld["kl_sym"]))
+            barrier(self.mesh)
 
 
 def main(argv=None, device=None):
     """CLI entry; runs on the card unless ``device`` names another
-    (``device="cpu"`` for a run on the host). Returns the NFTrainer."""
+    (``device="cpu"`` for a run on the host). Under ``torchrun`` it first
+    joins the process group, each rank on ``cuda:<LOCAL_RANK>`` unless
+    ``device`` names one. Returns the NFTrainer."""
     p = argparse.ArgumentParser()
     p.add_argument("--runfile", "-f", required=True)
     p.add_argument("--mode", "-m", default="train")
     p.add_argument("--kind", default="noise_flow", choices=["noise_flow", "proxy"])
     a = p.parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = init_distributed(device)
     trainer = NFTrainer(a.runfile, mode=a.mode, model_kind=a.kind, device=device)
     trainer.train()
     return trainer

@@ -13,7 +13,19 @@ import time
 from typing import Optional
 
 
+def is_main_process() -> bool:
+    """True outside a ``torch.distributed`` group and on its rank 0: the
+    one rank that logs and writes files in a multi-rank run."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def log(string, logfile: Optional[str] = None, notime: bool = False):
+    """Print a timestamped line and append it to ``logfile``; on rank 0 of
+    a multi-rank run only."""
+    if not is_main_process():
+        return
     prefix = "" if notime else time.strftime("%Y-%m-%d %H:%M:%S - ", time.localtime())
     line = f"{prefix}{string}"
     print(line, flush=True)

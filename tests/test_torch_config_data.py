@@ -159,9 +159,15 @@ def test_multidataset_and_unported_names(tmp_path):
     # SID_Dataset's default 250 split is empty with 2 scenes; Raw_Dataset has 2
     assert isinstance(m, tdata.MultiDataset) and len(m) == 0 + 2
     _assert_batches_equal(m[1], jdata.build_dataset(dst)[1])
-    for name in ("Img_Dataset", "Multi_Real_Dataset", "Multi_Sync_Dataset",
-                 "Multi_Mix_Dataset", "Multi_Uproc_Dataset"):
-        with pytest.raises(KeyError, match="ROADMAP 1.11"):
+    # ROADMAP 1.11 is ported (tests/test_torch_extra_data.py holds these
+    # against JAX): Img_Dataset builds; the Multi_* names reach the mixer,
+    # which refuses this block's 2 crops per image (not a multiple of 4)
+    from pnnp_tpu_torch.data.extra import ImgDataset
+
+    assert isinstance(tdata.build_dataset(dict(dst, dataset="Img_Dataset")), ImgDataset)
+    for name in ("Multi_Real_Dataset", "Multi_Sync_Dataset", "Multi_Mix_Dataset",
+                 "Multi_Uproc_Dataset"):
+        with pytest.raises(ValueError, match="divisible by the extra_rate=4"):
             tdata.build_dataset(dict(dst, dataset=name))
     with pytest.raises(KeyError, match="unknown dataset"):
         tdata.build_dataset(dict(dst, dataset="NoSuch_Dataset"))

@@ -59,7 +59,10 @@ def test_no_forbidden_import_in_sources():
             "pnnp_tpu_torch/tools/ab_proxy_vs_physics.py",
             "pnnp_tpu_torch/utils/profiling.py", "pnnp_tpu_torch/models/unet_s2d.py",
             "pnnp_tpu_torch/models/unet_s2d_int8.py", "pnnp_tpu_torch/ops/int8conv.py",
-            "pnnp_tpu_torch/tools/validate_int8.py"} <= names
+            "pnnp_tpu_torch/tools/validate_int8.py", "pnnp_tpu_torch/parallel/__init__.py",
+            "pnnp_tpu_torch/parallel/mesh.py", "pnnp_tpu_torch/models/blocks.py",
+            "pnnp_tpu_torch/train/flow_losses.py", "pnnp_tpu_torch/data/extra.py",
+            "pnnp_tpu_torch/physics/unprocess.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert not bad, bad
@@ -78,12 +81,14 @@ def test_importing_the_port_loads_no_forbidden_module():
         "import pnnp_tpu_torch.tools.validate_nf, pnnp_tpu_torch.trainer_led\n"
         "import pnnp_tpu_torch.tools.ab_proxy_vs_physics, pnnp_tpu_torch.ops.isp\n"
         "import pnnp_tpu_torch.utils.profiling, pnnp_tpu_torch.utils.debugger\n"
-        "import pnnp_tpu_torch.utils.video\n"
+        "import pnnp_tpu_torch.utils.video, pnnp_tpu_torch.parallel\n"
+        "import pnnp_tpu_torch.models.blocks, pnnp_tpu_torch.train.flow_losses\n"
+        "import pnnp_tpu_torch.data.extra, pnnp_tpu_torch.physics.unprocess\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
         "assert {'pnnp_tpu_torch.trainer', 'pnnp_tpu_torch.data.phone',\n"
         "        'pnnp_tpu_torch.physics.hbr', 'pnnp_tpu_torch.models.flows.coupling',\n"
-        "        'pnnp_tpu_torch.models.flows.sdn'} <= new\n"
+        "        'pnnp_tpu_torch.models.flows.sdn', 'pnnp_tpu_torch.parallel.mesh'} <= new\n"
         "print('BAD', bad)\n" % (FORBIDDEN,)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -241,10 +241,20 @@ def test_recovers_from_runtime_error(raw_root, capsys):
 
 @pytest.mark.parametrize("dataset,item", [("dpsv", "1.13")])
 def test_unported_train_families_raise(raw_root, dataset, item):
-    run = _raw_run(raw_root, mode="train")
+    """ROADMAP 1.13 is ported: ``use_dpsv`` on UNetSeeInDark, which has no
+    deep-supervision heads, is refused; on DeepUNet it trains one epoch
+    (the deep-supervision loss) and evaluates through the unfused branch."""
+    run = _raw_run(raw_root, mode="trainonly", stop_epoch=1)
     run["arch"]["use_dpsv"] = True
-    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP {item}")):
+    with pytest.raises(ValueError, match="deep-supervision heads"):
         Trainer(_write(raw_root / "run.yml", run), device="cpu")
+    run["arch"]["name"] = "DeepUNet"
+    t = Trainer(_write(raw_root / "run.yml", run), device="cpu", nofig=True)
+    assert t.train_step.deep_supervision and t._fused_eval is None
+    start = {k: v.clone() for k, v in t.model.state_dict().items()}
+    t.train()
+    assert np.isfinite(t.train_psnr.avg)
+    assert any(not torch.equal(start[k], v) for k, v in t.model.state_dict().items())
 
 
 def test_train_modes_need_the_card(raw_root, monkeypatch):

@@ -152,11 +152,14 @@ def test_eval_bf16_matches_jax(slice_setup, monkeypatch):
      {}, "1.13"),
 ])
 def test_unported_modes_raise(tmp_path, monkeypatch, extra, kw, item):
+    """With ROADMAP 1.13 ported, ``use_dpsv`` trains the deep-supervised
+    archs; UNetSeeInDark has no heads for it and is refused at once (JAX
+    fails at its first step's trace)."""
     monkeypatch.chdir(tmp_path)
     make_sid_fixture(tmp_path, n_scenes=2, H=32, W=48)
     run = dict(make_sid_runfile(tmp_path), mode="eval")
     path = _write_runfile(tmp_path, run, **extra)
-    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP {item}")):
+    with pytest.raises(ValueError, match="deep-supervision heads"):
         Trainer(path, device="cpu", **kw)
 
 
