@@ -167,6 +167,22 @@ and no result line):
    the per-rank SSIM slabs ``[1424, 4312]`` and ``[1736, 4696]`` on the
    ``hopper`` route against the plain version, timed against their bound.
 
+15. the flow library and the eval tools and demos (ROADMAP 1.12, 1.17):
+   every bijector no runfile reaches (``models/flows/{spline,basic,
+   conditional}.py``, ``AffineCouplingV2``, ``SignalDependantNS``) and
+   ``SdnModelScale`` on the card against the CPU on one seeded batch
+   (``bijector_card_check``, beside phase 9's flow check: within 1e-5 of
+   the largest CPU magnitude); ``pnnp_tpu_torch/tools/eval_fullres.py`` in
+   its default, ``--packed`` and ``--int8`` modes at both frames, 2 frames
+   chained (SSIM launches under ``fullres``), one of its Sony frames
+   recomputed by the plain SSIM and PSNR, and ``tools/bench_eval_loop.py``
+   over 4 Sony frames, sync and pipelined (launches under ``eval_loop``),
+   in this process (``phase_tools``); ``tools/validate_noise_model.py`` at
+   400k samples (every row's ``kl_sym`` <= 5e-3) and ``tools/demo_train.py``
+   then ``tools/demo_pnnp_pipeline.py`` at 200 steps of 8 x 128^2 (a
+   positive PSNR gain over the input and over the untrained net, the proxy's
+   KLD falling), each in a process of its own beside phase 6.
+
 Phase 2 also holds the ``generic`` route at the sRGB frames of
 ``rgb_quality`` (``SRGB_SONY``, ``SRGB_IMX686``), and phase 12 times it at
 the Sony one.
@@ -176,8 +192,9 @@ SSIM route: ``ssim`` is the ``hopper`` route of the main path, timed at the
 raw Sony frame; ``ssim_generic`` the first CUDA version, the route of
 ``rgb_quality``, timed at the sRGB Sony frame; ``launches`` sums the eval,
 the train, the PNNP, the four baseline, the two NF.yml, the rgb, unfused,
-LED, predict, int8 and packed-train runs and the two ranks' ``sharded``
-path, ``launches_by_path`` keeps each),
+LED, predict, int8 and packed-train runs, the two ranks' ``sharded``
+path and phase 15's ``fullres`` and ``eval_loop`` runs;
+``launches_by_path`` keeps each),
 the ``nvidia-smi``
 name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -1838,10 +1855,16 @@ def _flow_off_init(seed=0):
     couplings' networks shape the output."""
     from pnnp_tpu_torch.models import NoiseFlow
 
-    nf = NoiseFlow(generator=torch.Generator().manual_seed(seed))
+    return _off_init(NoiseFlow(generator=torch.Generator().manual_seed(seed)), seed)
+
+
+def _off_init(module, seed):
+    """``module`` with every learned leaf and BatchNorm stat moved off its
+    init by seeded numpy draws (frozen permutations, signs and ISO ladders
+    kept); in place, returned."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
-        for name, t in list(nf.named_parameters()) + list(nf.named_buffers()):
+        for name, t in list(module.named_parameters()) + list(module.named_buffers()):
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("p", "sign_s", "legal_iso"):
                 continue
@@ -1856,7 +1879,7 @@ def _flow_off_init(seed=0):
             else:
                 v = rng.normal(0, 0.1, t.shape)
             t.copy_(torch.as_tensor(v, dtype=torch.float32))
-    return nf
+    return module
 
 
 def flow_card_check(dev):
@@ -2062,16 +2085,21 @@ def phase_noiseflow(dev, base):
     return launches, out, keep
 
 
+def _start_tool(cmd):
+    """``cmd`` (a python module run or ``-c`` script) in a process of its own
+    on the same card; (process, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable] + cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
 def start_validate_nf():
     """``pnnp_tpu_torch/tools/validate_nf.py`` at the budget of
     tests/test_nf_kld_parity.py in a process of its own, on the same card:
     its small steps are bound by the host, so it runs beside the ISO ladder
     (bound by the host too). Returns (process, start time)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "pnnp_tpu_torch.tools.validate_nf"] + VALIDATE_NF_ARGS
-    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-    return proc, time.perf_counter()
+    return _start_tool(["-m", "pnnp_tpu_torch.tools.validate_nf"] + VALIDATE_NF_ARGS)
 
 
 def finish_validate_nf(started):
@@ -2344,11 +2372,7 @@ def start_ab():
     """``pnnp_tpu_torch/tools/ab_proxy_vs_physics.py`` at full width with its
     budget cut (``AB_ARGS``), in a process of its own on the same card.
     Returns (process, start time)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "pnnp_tpu_torch.tools.ab_proxy_vs_physics"] + AB_ARGS
-    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-    return proc, time.perf_counter()
+    return _start_tool(["-m", "pnnp_tpu_torch.tools.ab_proxy_vs_physics"] + AB_ARGS)
 
 
 def finish_ab(started):
@@ -3003,6 +3027,217 @@ def phase_multidevice(dev):
           f"train step {json.dumps(result['train_step'])}", flush=True)
     return launches, result
 
+# ------------------------------------------------ the flow library and the tools
+VNM_ARGS = ["--samples", "400000"]  # validate_noise_model, cut from 2M
+VNM_KL_BAR = 5e-3  # every row's kl_sym at VNM_ARGS (the JAX tool: ~1e-3 at 2M samples)
+DEMO_TRAIN_ARGS = ["--steps", "200", "--patch", "128", "--eval-every", "100"]
+DEMO_PNNP_ARGS = ["--proxy-steps", "200", "--unet-steps", "200", "--patch", "128"]
+FULLRES_FRAMES = 2
+EVAL_LOOP_ARGS = ["--frames", "4", "--camera", "SonyA7S2"]
+BIJECTOR_CHECK = (4, 64, 64)  # the flow library, card against CPU
+BIJECTOR_TOL = 1e-5  # of the largest magnitude of the CPU output
+
+
+def _finish_tool(started, what, timeout=900):
+    """(last stdout line as JSON, stdout, wall seconds) of a started tool."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=timeout)
+    wall = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"{what} exited {proc.returncode}: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1]), out, wall
+
+
+def start_validate_noise_model():
+    """``pnnp_tpu_torch/tools/validate_noise_model.py`` at ``VNM_ARGS`` beside
+    the ISO ladder (its oracle runs on the host)."""
+    return _start_tool(["-m", "pnnp_tpu_torch.tools.validate_noise_model"] + VNM_ARGS)
+
+
+def finish_validate_noise_model(started):
+    """Hold every row's ``kl_sym`` to ``VNM_KL_BAR``."""
+    res, out, wall = _finish_tool(started, "validate_noise_model")
+    _check(len(res["rows"]) == 5 and res["device"].startswith("cuda")
+           and all(r["kl_sym"] <= VNM_KL_BAR for r in res["rows"]),
+           f"validate_noise_model: rows {res['rows']} over {VNM_KL_BAR} or not on the card")
+    print(f"validate_noise_model {VNM_ARGS}: {wall:.1f} s beside the ISO ladder\n"
+          + "\n".join(out.strip().splitlines()[:-1]), flush=True)
+    return dict(res, args=VNM_ARGS, wall_s=wall, bar=VNM_KL_BAR)
+
+
+def start_demos():
+    """``demo_train`` and ``demo_pnnp_pipeline`` at reduced steps, one after
+    the other in one process of their own, beside the ISO ladder."""
+    script = ("import json\n"
+              "from pnnp_tpu_torch.tools import demo_pnnp_pipeline, demo_train\n"
+              f"a = demo_train.main({DEMO_TRAIN_ARGS!r})\n"
+              f"b = demo_pnnp_pipeline.main({DEMO_PNNP_ARGS!r})\n"
+              "print(json.dumps({'demo_train': a, 'demo_pnnp_pipeline': b}))\n")
+    return _start_tool(["-c", script])
+
+
+def finish_demos(started):
+    """Both demos beat the noisy input (a positive PSNR gain) and their
+    untrained net (the net learned); the proxy's KLD to the real dark
+    frames falls."""
+    res, out, wall = _finish_tool(started, "demos")
+    for name in ("demo_train", "demo_pnnp_pipeline"):
+        r = res[name]
+        _check(r["gain_db"] > 0 and r["psnr"] > r["psnr_init"] and r["card"] != "cpu",
+               f"{name}: {r}")
+    pn = res["demo_pnnp_pipeline"]
+    _check(pn["kld_after"] < pn["kld_before"], f"demo_pnnp_pipeline: KLD did not fall {pn}")
+    print(f"demos {DEMO_TRAIN_ARGS} / {DEMO_PNNP_ARGS}: {wall:.1f} s beside the ISO ladder\n"
+          + "\n".join(out.strip().splitlines()[:-1]), flush=True)
+    return dict(res, wall_s=wall)
+
+
+def _bijector_cases():
+    """name -> (module factory, input law): every layer of the flow library
+    no runfile reaches, at non-trivial widths."""
+    from pnnp_tpu_torch.models import flows as fl
+
+    g = lambda s: torch.Generator().manual_seed(s)
+    return {
+        "ActNorm": (lambda: fl.ActNorm(4), "normal"),
+        "Squeeze": (lambda: fl.Squeeze(2), "normal"),
+        "Logit": (lambda: fl.Logit(0.7), "unit"),
+        "UniformDequantization": (lambda: fl.UniformDequantization(8), "int"),
+        "NoiseExtraction": (fl.NoiseExtraction, "normal"),
+        "AffineCouplingV2": (lambda: fl.AffineCouplingV2(4, 16, g(1)), "normal"),
+        "SignalDependantNS": (lambda: fl.SignalDependantNS(4, generator=g(2)), "spline"),
+        "ConditionalAffineCoupling": (lambda: fl.ConditionalAffineCoupling(4, 16, generator=g(3)),
+                                      "normal"),
+        "ConditionalAffine": (lambda: fl.ConditionalAffine(4, 16, generator=g(4)), "normal"),
+        "ConditionalAffine(only_clean)": (
+            lambda: fl.ConditionalAffine(4, 16, only_clean=True, generator=g(5)), "normal"),
+        "ConditionalLinear": (lambda: fl.ConditionalLinear(4), "normal"),
+        "ConditionalInvertibleConv1x1": (lambda: fl.ConditionalInvertibleConv1x1(4, g(6)),
+                                         "normal"),
+    }
+
+
+def bijector_card_check(dev):
+    """Every bijector of the flow library (``_bijector_cases``, off-init
+    weights) and ``SdnModelScale`` on one seeded ``BIJECTOR_CHECK`` batch on
+    the card against the CPU, f32 without TF32: the forward output, the
+    log-det and the inverse each within ``BIJECTOR_TOL`` of the largest
+    magnitude of the CPU's. ``UniformDequantization`` draws its uniform per
+    device: its log-det and its inverse of the CPU's output are compared,
+    and its card output must lie in ``[x, x + 1] / 256``. Returns {name:
+    errors}."""
+    from pnnp_tpu_torch.models import flows as fl
+
+    n, h, w = BIJECTOR_CHECK
+    rng = np.random.default_rng(0)
+    laws = {"normal": rng.normal(0.5, 1.0, (n, 4, h, w)),
+            "unit": rng.uniform(0.02, 0.98, (n, 4, h, w)),
+            "spline": rng.uniform(-1.3, 1.3, (n, 4, h, w)),
+            "int": rng.integers(0, 256, (n, 4, h, w))}
+    laws = {k: torch.from_numpy(v.astype(np.float32)) for k, v in laws.items()}
+    clean = torch.from_numpy(rng.uniform(0, 0.3, (n, 4, h, w)).astype(np.float32))
+    field = lambda v: torch.tensor(v, dtype=torch.float32).reshape(n, 1, 1, 1).expand(n, 4, h, w)
+    iso, cam = field([800.0, 3200.0, 100.0, 1600.0]), field([2.0, 3.0, 0.0, 4.0])
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for name, (make, law) in _bijector_cases().items():
+            res = []  # the CPU's, then the card's
+            for d in (torch.device("cpu"), dev):
+                layer = _off_init(make(), 7).to(d)
+                ctx = dict(clean=clean.to(d), iso=iso.to(d))
+                if name.startswith("Conditional"):
+                    ctx["cam"] = cam.to(d)
+                x = laws[law].to(d)
+                kw = ({"generator": torch.Generator(device=d).manual_seed(0)}
+                      if name == "UniformDequantization" else {})
+                with torch.no_grad():
+                    z, ldj = layer.forward_ldj(x, **ctx, **kw)
+                    z_in = res[0][0].to(d) if res and kw else z
+                    res.append((z, ldj, layer.inverse(z_in, **ctx)))
+            (zh, lh, bh), (zc, lc, bc) = res
+            errs = {"ldj": rel(lc, lh), "inverse": rel(bc, bh)}
+            if name == "UniformDequantization":
+                # (x + u) / 2^bits with u in [0, 1): x + u rounds up to x + 1 in
+                # f32 for u within half an ulp of 1, so the card's output is
+                # held to [x, x + 1] / 2^bits, not to an exact round trip
+                frac = zc.cpu() * 256.0 - laws["int"]
+                _check(bool((frac >= 0).all() and (frac <= 1).all()),
+                       "UniformDequantization: card output outside [x, x + 1] / 256")
+            else:
+                errs["z"] = rel(zc, zh)
+            _check(max(errs.values()) <= BIJECTOR_TOL, f"{name} card vs cpu: {errs}")
+            out[name] = errs
+        with torch.no_grad():
+            sh, sc = (_off_init(fl.SdnModelScale(5), 7).to(d)(clean.to(d), iso.to(d), cam.to(d))
+                      for d in (torch.device("cpu"), dev))
+        out["SdnModelScale"] = {"z": rel(sc, sh)}
+        _check(out["SdnModelScale"]["z"] <= BIJECTOR_TOL, f"SdnModelScale: {out['SdnModelScale']}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def phase_tools(dev):
+    """ROADMAP 1.17 on the card, in this process: ``eval_fullres`` in its
+    default, ``--packed`` and ``--int8`` modes at ``FULLRES_FRAMES`` frames
+    (the fused step's SSIM launches counted under ``fullres``), one Sony
+    frame of its default step with the SSIM recomputed by the plain version,
+    and ``bench_eval_loop`` at ``EVAL_LOOP_ARGS`` (under ``eval_loop``).
+    Returns (launches by path, results)."""
+    import pnnp_tpu_torch.kernels.ssim as K
+    from pnnp_tpu_torch.models import UNetSeeInDark
+    from pnnp_tpu_torch.tools import bench_eval_loop, eval_fullres
+
+    t0 = time.perf_counter()
+    launches, out = {}, {"eval_fullres": {}}
+    with _Counted() as c:
+        for mode, flags in (("default", []), ("packed", ["--packed"]), ("int8", ["--int8"])):
+            rows = eval_fullres.main(["--frames", str(FULLRES_FRAMES)] + flags, device=dev)
+            _check(len(rows) == 2 and all(math.isfinite(r["metric_sum"]) and r["ms_per_frame"] > 0
+                                          for r in rows), f"eval_fullres {mode}: {rows}")
+            out["eval_fullres"][mode] = rows
+    launches["fullres"] = c.launches
+    want = 3 * len(eval_fullres.SHAPES) * (1 + eval_fullres.REPEATS) * FULLRES_FRAMES
+    _check(c.launches["by_route"]["hopper"] == c.launches["ssim"] == want,
+           f"eval_fullres: SSIM launches {c.launches}, not {want} hopper")
+
+    # one Sony frame of the default step, its metrics by the plain versions
+    net = UNetSeeInDark(nf=32, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(
+        eval_fullres.MODEL_SEED)).to(dev).eval()
+    frames, hr = eval_fullres.make_frames(MOSAIC_H // 2, MOSAIC_W // 2, 1, "default", dev)
+    dnf, m = eval_fullres.build_step(net, "default")(frames[0], hr, 1.0, correct=True)
+    H = hr.shape[1]
+    hrc = hr[0].clamp(0, 1).reshape(H, -1)
+    plain = float(K.ssim_flat_plain(dnf[0] * 255.0, hrc * 255.0))
+    mse = float(torch.mean((dnf[0] * 255.0 - hrc * 255.0) ** 2))
+    errs = {"ssim": abs(float(m["ssim"]) - plain),
+            "psnr": abs(float(m["psnr"]) - 10.0 * math.log10(255.0**2 / mse))}
+    _check(errs["ssim"] < TOL and errs["psnr"] < 1e-3, f"eval_fullres frame vs plain: {errs}")
+    out["frame_vs_plain"] = {"ssim": float(m["ssim"]), "psnr": float(m["psnr"]),
+                             "ssim_err": errs["ssim"], "psnr_err": errs["psnr"]}
+    del net
+
+    with _Counted() as c:
+        rows = bench_eval_loop.main(EVAL_LOOP_ARGS, device=dev)
+    launches["eval_loop"] = c.launches
+    frames_n = int(EVAL_LOOP_ARGS[1])
+    want = (1 + 2 * bench_eval_loop.REPEATS) * frames_n
+    _check(len(rows) == 2 and c.launches["by_route"]["hopper"] == c.launches["ssim"] == want,
+           f"bench_eval_loop: rows {rows}, SSIM launches {c.launches}, not {want} hopper")
+    out["bench_eval_loop"] = rows
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"tools: eval_fullres x3 modes and bench_eval_loop in {out['wall_s']:.1f} s; "
+          f"launches {launches}; frame vs plain {out['frame_vs_plain']}", flush=True)
+    for mode, rows in out["eval_fullres"].items():
+        print(f"eval_fullres {mode}: " + "; ".join(
+            f"{r['camera']} {r['ms_per_frame']:.3f} ms/frame" for r in rows), flush=True)
+    print("bench_eval_loop: " + "; ".join(f"{r['mode']} {r['ms_per_frame']:.3f} ms/frame"
+                                          for r in out["bench_eval_loop"]), flush=True)
+    torch.cuda.empty_cache()
+    return launches, out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3033,13 +3268,16 @@ def main() -> int:
     vint8_ckpt = os.path.join(vint8_dir.name, "validate_int8.ckpt")
     validate_nf, ab = start_validate_nf(), start_ab()
     vint8 = start_validate_int8(vint8_ckpt)
+    vnm, demos = start_validate_noise_model(), start_demos()
     try:
         ladder = phase_iso_ladder(dev)
         validate_nf = finish_validate_nf(validate_nf)
         ab = finish_ab(ab)
         vint8 = finish_validate_int8(vint8)
+        vnm = finish_validate_noise_model(vnm)
+        demos = finish_demos(demos)
     finally:
-        for started in (validate_nf, ab, vint8):
+        for started in (validate_nf, ab, vint8, vnm, demos):
             if isinstance(started, tuple) and started[0].poll() is None:
                 started[0].kill()
                 started[0].wait()
@@ -3056,12 +3294,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     flow_card = flow_card_check(dev)
     print(f"NoiseFlow card vs cpu at {FLOW_CHECK}: {flow_card}", flush=True)
+    t0 = time.perf_counter()
+    bijectors = bijector_card_check(dev)
+    bijectors_s = time.perf_counter() - t0
+    print(f"flow library card vs cpu at {BIJECTOR_CHECK} in {bijectors_s:.1f} s: {bijectors}",
+          flush=True)
     # after NoiseFlow: the f32 predict turns TF32 off for the process too
     eval_launches, eval_paths, srgb_err = phase_eval_paths(dev)
     packed_checks = phase_packed_checks(dev)
     int8_launches, int8_runs = phase_int8_eval(dev, vint8_ckpt)
     vint8_dir.cleanup()
     packed_timings = phase_packed_timings(dev, batch)
+    tools_launches, tools = phase_tools(dev)
     md_launches, multidevice = phase_multidevice(dev)
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
@@ -3074,15 +3318,20 @@ def main() -> int:
                    eval_paths=eval_paths, ab_reduced=ab,
                    packed_int8=dict(checks=packed_checks, **int8_runs, ab=packed_timings,
                                     validate_int8=vint8),
-                   multidevice=multidevice)
+                   multidevice=multidevice,
+                   tools=dict(tools, validate_noise_model=vnm, demos=demos,
+                              flow_library_card_vs_cpu=dict(errors=bijectors,
+                                                            wall_s=bijectors_s)))
 
     # one row per SSIM route: the main path's (hopper) and the first version
     # (generic, rgb_quality's route); launches of each path's run (the eval
     # run, the train run's, the PNNP run's, the baseline runs' and the NF.yml
-    # runs' eval legs, the rgb, unfused, LED and predict runs) and their sum
+    # runs' eval legs, the rgb, unfused, LED and predict runs, the int8 and
+    # packed-train runs, the ranks' sharded path, eval_fullres's three modes
+    # and bench_eval_loop) and their sum
     by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches,
                **base_launches, **flow_launches, **eval_launches, **int8_launches,
-               "sharded": md_launches}
+               "sharded": md_launches, **tools_launches}
     kernels = [dict(
         name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
         replaces="pnnp_tpu/kernels/ssim.py:39",

@@ -1,4 +1,4 @@
-"""torch <-> JAX checkpoint conversion for the denoiser family.
+"""torch <-> JAX checkpoint conversion for the denoiser family and the flows.
 
 NumPy copies of ``pnnp_tpu/models/convert.py``'s name/layout mapping
 (``torch_state_to_flax`` :31, ``flax_to_torch_state`` :102) plus the weight
@@ -10,6 +10,9 @@ arrays) into this package's ``state_dict``:
     flipped (``[::-1, ::-1]``): flax applies the transposed-conv kernel
     flipped, torch does not
   * biases map 1:1
+
+:func:`eld_checkpoint_state_dict` reads the reference's ELD checkpoints and
+:func:`load_tolerant` merges a checkpoint forgivingly, over state dicts.
 """
 
 from __future__ import annotations
@@ -159,19 +162,24 @@ def _flat(tree: Mapping[str, Any], path=()):
 
 def flow_params_from_jax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any] | None = None) -> dict:
-    """NoiseFlow's JAX ``params`` and ``batch_stats`` trees (numpy leaves;
-    module names as ``pnnp_tpu/models/noise_flow.py:37-50``) -> a
-    ``state_dict`` of :class:`pnnp_tpu_torch.models.NoiseFlow`. Conv kernels
-    go HWIO -> OIHW, BatchNorm ``scale`` becomes ``weight`` and the stats
+    """A flow's JAX ``params`` and ``batch_stats`` trees (numpy leaves) -> the
+    ``state_dict`` of its counterpart in :mod:`pnnp_tpu_torch.models.flows`
+    or of :class:`pnnp_tpu_torch.models.NoiseFlow` (module names as
+    ``pnnp_tpu/models/noise_flow.py:37-50``), keyed by JAX's module names.
+    Conv kernels go HWIO -> OIHW, Dense kernels ``[in, out]`` -> Linear
+    ``[out, in]``, BatchNorm ``scale`` becomes ``weight`` and the stats
     ``mean``/``var`` the ``running_*`` buffers; every other leaf keeps its
-    path and shape."""
+    path and shape. The ``lu`` dicts of the 1x1 convolutions keep their
+    leaf names: ``ConditionalInvertibleConv1x1`` holds ``p`` and ``sign_s``
+    as buffers, ``l``/``u``/``log_s`` as parameters, and ``load_state_dict``
+    fills both."""
     out = {}
     for path, v in _flat(params):
         arr = np.asarray(v, np.float32)
         *mod, leaf = path
         if leaf == "kernel":
-            leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
-        elif leaf == "scale" and mod[-1].startswith("bn"):
+            leaf, arr = "weight", arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+        elif leaf == "scale" and mod and mod[-1].startswith("bn"):
             leaf = "weight"
         # np.array, not ascontiguousarray: the 0-d leaves (gain, beta1, ...) stay 0-d
         out[".".join(mod + [leaf])] = torch.from_numpy(np.array(arr))
@@ -194,7 +202,58 @@ def flow_params_to_jax(state_dict: Mapping[str, Any]) -> tuple[dict, dict]:
             continue
         if leaf == "weight" and arr.ndim == 4:
             leaf, arr = "kernel", np.array(arr.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and arr.ndim == 2:
+            leaf, arr = "kernel", np.array(arr.T)
         elif leaf == "weight":
             leaf = "scale"
         _set_nested(params, mod + [leaf], arr)
     return params, stats
+
+
+def _as_tensor(v) -> torch.Tensor:
+    """A tensor (detached, on the CPU) or an array-like as a CPU tensor."""
+    return v.detach().cpu() if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+
+
+def eld_checkpoint_state_dict(path: str) -> dict:
+    """An ELD-format torch checkpoint (``{'netG': state_dict}``, or a bare
+    ``{'state_dict': ...}``) as this package's ``state_dict`` of float32 CPU
+    tensors, the DataParallel ``module.`` prefix stripped and
+    ``num_batches_tracked`` dropped. The reference's layer names are the
+    port's, so it loads into the module as it is. Counterpart of
+    ``pnnp_tpu/models/convert.py::eld_checkpoint_to_flax`` (the reference's
+    pth_transfer, utils/utils.py:257-270), which returns flax params."""
+    state = torch.load(path, map_location="cpu")
+    if isinstance(state, dict) and "netG" in state:
+        state = state["netG"]
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    out = {}
+    for key, val in state.items():
+        key = key[len("module."):] if key.startswith("module.") else key
+        if key.rsplit(".", 1)[-1] != "num_batches_tracked":
+            out[key] = _as_tensor(val).float()
+    return out
+
+
+def load_tolerant(target: Mapping[str, Any], loaded: Mapping[str, Any],
+                  by_name: bool = True) -> dict:
+    """Name- and shape-tolerant merge of the state dict ``loaded`` into
+    ``target`` (counterpart of ``pnnp_tpu/models/convert.py::load_tolerant``,
+    the reference's forgiving loader, utils/utils.py:148-192): an entry of
+    ``target`` keeps its value, with a warning, where ``loaded`` lacks the
+    name or holds another shape (that warning only with ``by_name``);
+    otherwise it takes ``loaded``'s value in ``target``'s dtype. Names only
+    in ``loaded`` are dropped. Returns a new dict of ``target``'s names."""
+    merged = {}
+    for name, tv in target.items():
+        lv = loaded.get(name)
+        if lv is not None and tuple(np.shape(lv)) == tuple(tv.shape):
+            merged[name] = _as_tensor(lv).to(dtype=tv.dtype)
+            continue
+        if lv is not None and by_name:
+            warnings.warn(f"shape mismatch for {name}; keeping init")
+        elif lv is None:
+            warnings.warn(f"missing {name} in checkpoint; keeping init")
+        merged[name] = tv
+    return merged

@@ -7,6 +7,9 @@ conv -> BN -> ReLU, then the border-flag trick: zero-pad H and W by 1, add
 one channel that is 1 exactly on the padded ring, and a zero-init VALID 3x3
 conv, so the network can tell the zero border apart. The output is scaled
 by ``exp(3 * logs)`` and the log-scale bounded by ``scale * tanh(.)``.
+:class:`ShiftAndLogScaleV2` / :class:`AffineCouplingV2` (reference
+affine_coupling_v2.py) drop the border flag for a zero-init SAME 3x3 conv
+and bound the log-scale at the coupling level.
 
 The BatchNorm is flax's (:class:`FlaxBatchNorm`), not torch's: flax keeps
 its running averages with momentum 0.99 and updates the running variance
@@ -109,6 +112,69 @@ class ShiftAndLogScale(nn.Module):
         h = self.conv2d_3(h) * torch.exp(self.logs.reshape(1, -1, 1, 1) * 3.0)
         half = self.num_out // 2
         return h[:, :half], self.scale * torch.tanh(h[:, half:])
+
+
+class ShiftAndLogScaleV2(nn.Module):
+    """TF-Glow-style conditioner without the border flag: 3x3 conv -> BN ->
+    ReLU -> 1x1 conv -> BN -> ReLU -> zero-init SAME 3x3 conv
+    (``conv2d_zeros``), scaled by ``exp(3 * logs)`` (reference
+    affine_coupling_v2.py:62-95). Returns the raw (shift, log_scale): the
+    coupling applies its learnable bound."""
+
+    def __init__(self, num_in: int, num_out: int, width: int = 4,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_out = num_out
+        self.conv2d_1 = nn.Conv2d(num_in, width, 3, padding=1)
+        self.bn1 = FlaxBatchNorm(width)
+        self.conv2d_2 = nn.Conv2d(width, width, 1)
+        self.bn2 = FlaxBatchNorm(width)
+        self.conv2d_zeros = nn.Conv2d(width, num_out, 3, padding=1)
+        self.logs = nn.Parameter(torch.zeros(1, 1, 1, num_out))
+        with torch.no_grad():
+            std = width / 512 * 0.05
+            for conv in (self.conv2d_1, self.conv2d_2):
+                conv.weight.normal_(0.0, std, generator=generator)
+            for conv in (self.conv2d_1, self.conv2d_2, self.conv2d_zeros):
+                nn.init.zeros_(conv.bias)
+            nn.init.zeros_(self.conv2d_zeros.weight)
+
+    def forward(self, x, train: bool = False):
+        h = F.relu(self.bn1(self.conv2d_1(x), train))
+        h = F.relu(self.bn2(self.conv2d_2(h), train))
+        h = self.conv2d_zeros(h) * torch.exp(self.logs.reshape(1, -1, 1, 1) * 3.0)
+        half = self.num_out // 2
+        return h[:, :half], h[:, half:]
+
+
+class AffineCouplingV2(Bijector):
+    """:class:`AffineCoupling` on the V2 conditioner, the log-scale bounded
+    by the coupling's own ``scale * tanh(.)`` (reference
+    affine_coupling_v2.py:19-60)."""
+
+    def __init__(self, num_channels: int = 4, width: int = 4,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = self.num_channels = num_channels
+        self.net = ShiftAndLogScaleV2(c // 2, 2 * (c - c // 2), width, generator)
+        self.scale = nn.Parameter(torch.full((1,), 1e-4))
+
+    def _shift_log_scale(self, half, train):
+        shift, log_scale = self.net(half, train)
+        return shift, self.scale * torch.tanh(log_scale)
+
+    def forward_ldj(self, x, clean=None, iso=None, train: bool = False):
+        c = self.num_channels
+        x0, x1 = x[:, :c // 2], x[:, c // 2:]
+        shift, log_scale = self._shift_log_scale(x0, train)
+        z1 = x1 * torch.exp(log_scale) + shift
+        return torch.cat([x0, z1], dim=1), sum_except_batch(log_scale)
+
+    def inverse(self, z, clean=None, iso=None):
+        c = self.num_channels
+        z0, z1 = z[:, :c // 2], z[:, c // 2:]
+        shift, log_scale = self._shift_log_scale(z0, False)
+        return torch.cat([z0, (z1 - shift) * torch.exp(-log_scale)], dim=1)
 
 
 class AffineCoupling(Bijector):

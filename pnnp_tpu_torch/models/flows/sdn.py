@@ -7,14 +7,23 @@ is the reference's searchsorted pick, whose "interpolation" formula
 collapses: an ISO on the ladder returns its own row, an ISO off the ladder
 the row of the ladder entry just above it. No true interpolation happens
 (tests/test_nf_kld_parity.py pins this as a property).
+
+:class:`SignalDependantNS` (reference signal_dependant.py:131-258) is the
+neural-spline variant: an RQ spline whose bins come from a small CNN over
+the clean image.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from pnnp_tpu_torch.models.flows.base import Bijector, sum_except_batch
+from pnnp_tpu_torch.models.flows.spline import unconstrained_rational_quadratic_spline
+from pnnp_tpu_torch.models.proxy import lecun_normal_
 from pnnp_tpu_torch.physics.calibration import LEGAL_ISO
 
 
@@ -69,6 +78,50 @@ class SignalDependantISO(Bijector):
 
     def inverse(self, z, clean=None, iso=None):
         return z * self._scale(clean, iso)
+
+
+class SignalDependantNS(Bijector):
+    """Neural-spline signal-dependent bijector: an RQ spline with linear
+    tails whose per-pixel, per-channel bins come from ``net2(relu(net1(
+    clean)))``; ``net1`` is a 3x3 conv (flax's default init), ``net2`` a
+    zero-init 1x1 conv to ``C * (3K - 1)`` channels, split per channel
+    into K widths, K heights (both scaled by ``1/sqrt(hidden)``) and K-1
+    derivatives (reference signal_dependant.py:131-258)."""
+
+    def __init__(self, num_channels: int = 4, num_bins: int = 10, tail_bound: float = 1.0,
+                 hidden: int = 16, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_channels, self.num_bins = num_channels, num_bins
+        self.tail_bound, self.hidden = tail_bound, hidden
+        self.mult = num_bins * 3 - 1  # linear tails
+        self.net1 = nn.Conv2d(num_channels, hidden, 3, padding=1)
+        self.net2 = nn.Conv2d(hidden, num_channels * self.mult, 1)
+        lecun_normal_(self.net1.weight, generator)
+        with torch.no_grad():
+            for t in (self.net1.bias, self.net2.weight, self.net2.bias):
+                t.zero_()
+        # JAX's 1 / jnp.sqrt(hidden), in float32
+        self._scale = float(1.0 / torch.sqrt(torch.tensor(float(hidden))))
+
+    def _params(self, clean):
+        p = self.net2(F.relu(self.net1(clean)))  # [n, C*mult, H, W]
+        n, _, H, W = p.shape
+        # channel c*mult + m of the conv -> [n, C, H, W, mult]
+        p = p.reshape(n, self.num_channels, self.mult, H, W).permute(0, 1, 3, 4, 2)
+        K = self.num_bins
+        return p[..., :K] * self._scale, p[..., K:2 * K] * self._scale, p[..., 2 * K:]
+
+    def forward_ldj(self, x, clean=None, iso=None, train: bool = False):
+        w, h, d = self._params(clean)
+        z, ladj = unconstrained_rational_quadratic_spline(
+            x, w, h, d, inverse=False, tail_bound=self.tail_bound)
+        return z, sum_except_batch(ladj)
+
+    def inverse(self, z, clean=None, iso=None):
+        w, h, d = self._params(clean)
+        x, _ = unconstrained_rational_quadratic_spline(
+            z, w, h, d, inverse=True, tail_bound=self.tail_bound)
+        return x
 
 
 class GainISO(Bijector):

@@ -58,10 +58,11 @@ class HeadParams(NamedTuple):
 
 
 def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> None:
-    """flax's default Dense kernel init: a normal truncated to +-2 std with
-    variance 1/fan_in after truncation (``variance_scaling(1, 'fan_in',
-    'truncated_normal')``); ``weight`` is torch's ``[out, in]``."""
-    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    """flax's default Dense and Conv kernel init: a normal truncated to +-2
+    std with variance 1/fan_in after truncation (``variance_scaling(1,
+    'fan_in', 'truncated_normal')``); ``weight`` is torch's ``[out, in]``
+    or ``[out, in, kh, kw]`` (fan_in ``in * kh * kw``)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std,
                               generator=generator)

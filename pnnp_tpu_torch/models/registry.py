@@ -35,14 +35,29 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "bf16": torch.bfloat16}
 
 
+def register(name: str, cls) -> None:
+    """Add (or replace) an ``arch.name``: ``cls`` takes :func:`build_model`'s
+    keyword arguments (in_nc, out_nc, nf, res, dtype, generator)."""
+    _REGISTRY[name] = cls
+
+
+def example_input_channels(arch: Mapping[str, Any]) -> int:
+    """The input channels of a runfile ``arch`` block's denoiser: ``in_nc``
+    times ``nframes`` (multi-frame inputs stack along channels; reference
+    Unet.py:16). :func:`build_model` builds the first convolution this
+    wide; flax reads the same count off its init example."""
+    return int(arch.get("in_nc", 4)) * int(arch.get("nframes", 1))
+
+
 def build_model(arch: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None):
     """Instantiate a denoiser from a runfile ``arch`` block.
 
     Recognized keys: name, in_nc, out_nc, nf, res, nframes, dtype.
-    ``nframes`` multiplies the input channel count (reference: Unet.py:16).
-    ``dtype`` overrides the block's ``dtype`` key; ``generator`` seeds the
-    N(0, 0.02) init. The module is built on the CPU: move it with ``.to``.
+    ``nframes`` multiplies the input channel count
+    (:func:`example_input_channels`). ``dtype`` overrides the block's
+    ``dtype`` key; ``generator`` seeds the N(0, 0.02) init. The module is
+    built on the CPU: move it with ``.to``.
     """
     name = arch["name"]
     if name not in _REGISTRY:
@@ -54,7 +69,7 @@ def build_model(arch: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
                 f"unknown dtype '{dtype_name}'; known: {sorted(_DTYPES)}")
         dtype = _DTYPES[dtype_name]
     return _REGISTRY[name](
-        in_nc=int(arch.get("in_nc", 4)) * int(arch.get("nframes", 1)),
+        in_nc=example_input_channels(arch),
         out_nc=int(arch.get("out_nc", 4)),
         nf=int(arch.get("nf", 32)),
         res=bool(arch.get("res", False)),

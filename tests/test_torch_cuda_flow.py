@@ -10,7 +10,10 @@ the production arch string on 8 x 4 x 64 x 64 with off-init weights shared
 by both devices. Forward z within 1e-5 of its largest magnitude, the
 log-det 1e-5 relative, the inverse within 1e-4 of its largest, the
 train-mode NLL 1e-5 relative and its gradients within 1e-4 of the largest
-gradient.
+gradient. The flow library (``chip_smoke.py::bijector_card_check``): every
+bijector no runfile reaches, and ``SdnModelScale``, on one seeded 4 x 4 x
+64 x 64 batch with off-init weights, its forward output, log-det and
+inverse within 1e-5 of the largest magnitude of the CPU's.
 """
 
 import pytest
@@ -47,3 +50,11 @@ def test_flow_samples_on_the_card(card):
         z, _ = nf.forward(noise, clean, iso)
     assert torch.isfinite(noise).all() and noise.shape == clean.shape
     assert abs(float(z.mean())) < 0.02 and abs(float(z.std()) - 1.0) < 0.02
+
+
+@pytest.mark.cuda
+def test_flow_library_on_the_card_matches_the_cpu(card):
+    from chip_smoke import BIJECTOR_TOL, bijector_card_check
+
+    errs = bijector_card_check(card)
+    assert len(errs) == 13 and max(max(e.values()) for e in errs.values()) <= BIJECTOR_TOL

@@ -62,7 +62,11 @@ def test_no_forbidden_import_in_sources():
             "pnnp_tpu_torch/tools/validate_int8.py", "pnnp_tpu_torch/parallel/__init__.py",
             "pnnp_tpu_torch/parallel/mesh.py", "pnnp_tpu_torch/models/blocks.py",
             "pnnp_tpu_torch/train/flow_losses.py", "pnnp_tpu_torch/data/extra.py",
-            "pnnp_tpu_torch/physics/unprocess.py"} <= names
+            "pnnp_tpu_torch/physics/unprocess.py", "pnnp_tpu_torch/models/flows/spline.py",
+            "pnnp_tpu_torch/models/flows/basic.py", "pnnp_tpu_torch/models/flows/conditional.py",
+            "pnnp_tpu_torch/tools/validate_noise_model.py", "pnnp_tpu_torch/tools/eval_fullres.py",
+            "pnnp_tpu_torch/tools/bench_eval_loop.py", "pnnp_tpu_torch/tools/demo_train.py",
+            "pnnp_tpu_torch/tools/demo_pnnp_pipeline.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert not bad, bad
@@ -84,6 +88,9 @@ def test_importing_the_port_loads_no_forbidden_module():
         "import pnnp_tpu_torch.utils.video, pnnp_tpu_torch.parallel\n"
         "import pnnp_tpu_torch.models.blocks, pnnp_tpu_torch.train.flow_losses\n"
         "import pnnp_tpu_torch.data.extra, pnnp_tpu_torch.physics.unprocess\n"
+        "import pnnp_tpu_torch.models.flows.conditional, pnnp_tpu_torch.models.flows.spline\n"
+        "import pnnp_tpu_torch.tools.validate_noise_model, pnnp_tpu_torch.tools.eval_fullres\n"
+        "import pnnp_tpu_torch.tools.bench_eval_loop, pnnp_tpu_torch.tools.demo_pnnp_pipeline\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
         "assert {'pnnp_tpu_torch.trainer', 'pnnp_tpu_torch.data.phone',\n"
@@ -147,6 +154,19 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         LEDTrainer(path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         led_main(["-f", path])
+    from pnnp_tpu_torch.tools import (
+        bench_eval_loop,
+        demo_pnnp_pipeline,
+        demo_train,
+        eval_fullres,
+        validate_noise_model,
+    )
+
+    for tool, argv in ((validate_noise_model, ["--samples", "400"]),
+                       (eval_fullres, ["--frames", "1"]), (bench_eval_loop, ["--frames", "1"]),
+                       (demo_train, ["--steps", "1"]), (demo_pnnp_pipeline, ["--proxy-steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:1")
     assert resolve_device("cpu") == torch.device("cpu")
