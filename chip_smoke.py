@@ -183,6 +183,41 @@ and no result line):
    positive PSNR gain over the input and over the untrained net, the proxy's
    KLD falling), each in a process of its own beside phase 6.
 
+16. the card's Poisson law (ROADMAP section 3.2, ``phase_poisson``, after
+   phase 5): ``pnnp_tpu_torch/tools/check_poisson.py``'s sampler against
+   ``scipy.stats.poisson`` at lam in {1, 4, 16, 23, 64, 100} on the card
+   (2^22 draws) and the CPU (2^20): mean and variance within 2%, the pmf KLD
+   within 4x its floor; each card draw uncorrelated with the next call's
+   uniform at the same element (the stream reserve of ``ops/poisson.py``;
+   bare ``torch.poisson`` reported beside it); ``validate_noise_model``'s
+   IMX686 ISO 100 row split by code (p, g, r, q, pgrq) over seeds 0-7 at
+   400k samples on the card, and its pgrq row with bare ``torch.poisson``
+   and on the CPU: the card's pgrq median at most the CPU's largest.
+
+17. the proxy research tools (ROADMAP 1.19, ``phase_proxy_tools``, after
+   phase 6, whose last ladder run saves its params): ``diagnose_proxy_fit``
+   on that trained proxy, card against CPU (closed-form columns within
+   1e-5), and ``oracle_row_deconv`` / ``oracle_proxy_family`` at 200 steps
+   at ISO 12800, their KLDs and wall times.
+
+18. the int8 serving tools (ROADMAP 1.20, ``phase_int8_tools``, after phase
+   13's A/Bs): ``ablate_int8_quantset`` (every subset),
+   ``profile_prefix_int8`` (the full prefix within 10% of phase 13's W8A8
+   eval step at the Sony frame, each of the seven marginals above -5% of
+   it),
+   ``bench_int8`` (every case) and ``int8_roofline`` (the walk's FLOP
+   inventory equal to the JAX tool's table; the int4 probe's JSON form).
+
+19. the real-data CLIs (ROADMAP 1.18, ``phase_golden``, after phase 15):
+   full-width synthetic SID evaltest (81 scenes over the x100 / x250 / x300
+   splits, three distinct raw pairs linked) and ELD (one scene, ISOs 800 /
+   1600 / 3200 at ratios 100 and 200) trees, indexed by
+   ``tools/get_dataset_infos.py``; a seeded nf=32 UNetSeeInDark saved as a
+   reference ``.pth``; ``tools/golden_parity.py --config SonyA7S2_PNNP``
+   on the card against BASELINE.md's numbers (exit 1, 5 sweeps, ``fail``)
+   and against that run's own numbers (exit 0): 174 ``hopper`` launches
+   under ``golden``.
+
 Phase 2 also holds the ``generic`` route at the sRGB frames of
 ``rgb_quality`` (``SRGB_SONY``, ``SRGB_IMX686``), and phase 12 times it at
 the Sony one.
@@ -193,7 +228,8 @@ raw Sony frame; ``ssim_generic`` the first CUDA version, the route of
 ``rgb_quality``, timed at the sRGB Sony frame; ``launches`` sums the eval,
 the train, the PNNP, the four baseline, the two NF.yml, the rgb, unfused,
 LED, predict, int8 and packed-train runs, the two ranks' ``sharded``
-path and phase 15's ``fullres`` and ``eval_loop`` runs;
+path, phase 15's ``fullres`` and ``eval_loop`` runs and phase 19's
+``golden`` sweeps;
 ``launches_by_path`` keeps each),
 the ``nvidia-smi``
 name/power-limit line, and last
@@ -1083,11 +1119,12 @@ def phase_proxy_checks(dev):
     return out
 
 
-def phase_iso_ladder(dev):
+def phase_iso_ladder(dev, save):
     """tools/validate_proxy.py on the card at the JAX ladder test's budget,
-    once per seed of LADDER_SEEDS (tools/ladder_spread.py): every run's NLL
-    finite, its trained ISOs inside the test's bars and its trained-12800
-    row KLD at most LADDER_ROW_12800_BAR. The held-out ISO
+    once per seed of LADDER_SEEDS (tools/ladder_spread.py), the last run's
+    params saved to ``save`` (JAX layout, for ``phase_proxy_tools``): every
+    run's NLL finite, its trained ISOs inside the test's bars and its
+    trained-12800 row KLD at most LADDER_ROW_12800_BAR. The held-out ISO
     6400 is reported against its bar, not held to it: how the conditioning
     MLP interpolates between the trained ISOs at this budget depends on the
     init draw (PERF.md, section 6), and the JAX test's bar was set on one draw,
@@ -1095,7 +1132,8 @@ def phase_iso_ladder(dev):
     from pnnp_tpu_torch.tools.ladder_spread import main as spread
 
     t0 = time.perf_counter()
-    res = spread(["--seeds", LADDER_SEEDS] + LADDER_ARGS, device=dev)
+    res = spread(["--seeds", LADDER_SEEDS] + LADDER_ARGS + ["--save", save], device=dev)
+    _check(os.path.exists(save), f"the ladder saved no params at {save}")
     wall = time.perf_counter() - t0
     for run in res["runs"]:
         rows = run["rows"]
@@ -3239,6 +3277,283 @@ def phase_tools(dev):
     return launches, out
 
 
+# ------------------------------------- the Poisson law, the real-data CLIs, the tools
+POISSON_LAMS = (1.0, 4.0, 16.0, 23.0, 64.0, 100.0)
+POISSON_N = {"card": 1 << 22, "cpu": 1 << 20}  # draws per lam
+SPLIT_SEEDS = list(range(8))  # validate_noise_model's IMX686 ISO 100 row, device seeds
+SPLIT_SAMPLES = 400_000
+# the golden trees: SID evaltest scenes per ratio split (the dataset's
+# positional [0:40] x100, [40:80] x250, [80:] x300), their exposure pairs
+GOLDEN_SID = ((40, "10s", "0.1s"), (40, "10s", "0.04s"), (1, "30s", "0.1s"))
+GOLDEN_ELD = ((800, 100), (800, 200), (1600, 100), (1600, 200), (3200, 100), (3200, 200))
+GOLDEN_SEED = 9
+ORACLE_ROW_ARGS = ["--steps", "200", "--isos", "12800"]
+ORACLE_FAMILY_ARGS = ["--steps", "200", "--isos", "12800"]
+ABLATE_ARGS = ["--frames", "4", "--repeats", "3"]
+PREFIX_ARGS = ["--iters", "4", "--repeats", "3"]
+ROOFLINE_ARGS = ["--iters", "4", "--probe-int4"]
+PREFIX_TOL = 0.10  # the full prefix against the W8A8 eval step
+MARGINAL_FLOOR = -0.05  # each band's marginal, as a share of the full prefix
+
+
+def _tee(fn, *args, **kw):
+    """(``fn(*args, **kw)``, its standard output), the output printed too."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args, **kw)
+    print(buf.getvalue(), end="", flush=True)
+    return res, buf.getvalue()
+
+
+def phase_poisson(dev):
+    """ROADMAP section 3.2 (``pnnp_tpu_torch/tools/check_poisson.py``): the
+    Poisson sampler on the card and on the CPU against
+    ``scipy.stats.poisson`` at ``POISSON_LAMS`` (mean and variance within 2%
+    of lam, the pmf KLD within 4x its sampling floor); each card draw
+    uncorrelated with the uniform the generator's next call gives the same
+    element (|corr| < 5 / sqrt(n); bare ``torch.poisson``'s correlation
+    reported beside it); ``validate_noise_model``'s IMX686 ISO 100 row split
+    by noise code over ``SPLIT_SEEDS`` on the card, its ``pgrq`` row with
+    bare ``torch.poisson`` on the card and with the port's sampler on the
+    CPU: the card's ``pgrq`` median no higher than the CPU's largest."""
+    from pnnp_tpu_torch.tools import check_poisson as CP
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        rows = CP.sampler_rows(d, POISSON_LAMS, n=POISSON_N[name])
+        for r in rows:
+            _check(abs(r["mean_rel"]) < 0.02 and abs(r["var_rel"]) < 0.02
+                   and r["kl"] < 4 * r["kl_floor"], f"Poisson sampler on the {name}: {r}")
+        out[f"sampler_{name}"] = rows
+    out["stream"] = CP.stream_rows(dev, POISSON_LAMS, n=1 << 20)
+    for r in out["stream"]:
+        _check(abs(r["corr_port"]) < 5 / math.sqrt(r["n"]), f"Poisson stream on the card: {r}")
+    split = CP.split_rows(dev, SPLIT_SEEDS, SPLIT_SAMPLES)
+    split += CP.split_rows(dev, SPLIT_SEEDS, SPLIT_SAMPLES, codes=("pgrq",), bare=True)
+    (cpu_row,) = CP.split_rows(cpu, SPLIT_SEEDS, SPLIT_SAMPLES, codes=("pgrq",))
+    card_row = next(r for r in split if r["code"] == "pgrq" and r["sampler"] == "port")
+    _check(card_row["median"] <= cpu_row["max"],
+           f"IMX686 ISO 100 pgrq: card median {card_row['median']} over the CPU's largest "
+           f"{cpu_row['max']}")
+    out.update(split=split, split_cpu=cpu_row, wall_s=time.perf_counter() - t0)
+    print(f"Poisson: sampler within 2% of scipy's moments on the card and the CPU at "
+          f"{POISSON_LAMS}; stream corr port / bare " + ", ".join(
+              f"{r['lam']:g}: {r['corr_port']:+.4f} / {r['corr_bare']:+.4f}" for r in out["stream"])
+          + "; IMX686 ISO 100 split, median (max) kl_sym over seeds "
+          f"{SPLIT_SEEDS[0]}-{SPLIT_SEEDS[-1]}: " + ", ".join(
+              f"{r['sampler']} {r['code']} {r['median']:.3e} ({r['max']:.3e})" for r in split)
+          + f"; CPU pgrq {cpu_row['median']:.3e} ({cpu_row['max']:.3e}); "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _golden_trees(root):
+    """Full-width (2848x4256) SID evaltest and ELD trees in the decode-cache
+    layout of tests/test_evaltest_harness.py (npy raws; ELD's JSON
+    sidecars): one distinct long/short pair per SID ratio split, linked
+    into ``GOLDEN_SID``'s 81 scenes; one ELD scene whose GT frames link the
+    first long raw and whose ``GOLDEN_ELD`` frames link the first short
+    one. Returns (SID root, ELD root)."""
+    rng = np.random.default_rng(GOLDEN_SEED)
+    src = os.path.join(root, "raw")
+    os.makedirs(src)
+
+    def raw(name, lo, hi):
+        path = os.path.join(src, name + ".npy")
+        np.save(path, rng.uniform(lo, hi, (MOSAIC_H, MOSAIC_W)).astype(np.float32))
+        return path
+
+    sid, eld = os.path.join(root, "SID"), os.path.join(root, "ELD")
+    for d in ("long", "short"):
+        os.makedirs(os.path.join(sid, d))
+    fid = 0
+    pairs = []
+    for split, (n, le, se) in enumerate(GOLDEN_SID):
+        pair = (raw(f"long{split}", 512, 16383), raw(f"short{split}", 400, 2200))
+        pairs.append(pair)
+        for _ in range(n):
+            os.link(pair[0], os.path.join(sid, "long", f"{fid:05d}_00_{le}.npy"))
+            os.link(pair[1], os.path.join(sid, "short", f"{fid:05d}_00_{se}.npy"))
+            fid += 1
+    scene = os.path.join(eld, "SonyA7S2", "scene-1")
+    os.makedirs(scene)
+    slots = [2, 3, 4, 5, 7, 8]
+    for img_id in range(1, 17):
+        path = os.path.join(scene, f"IMG_{img_id:04d}.npy")
+        if img_id in slots:
+            iso, ratio = GOLDEN_ELD[slots.index(img_id)]
+            meta = {"ISO": iso, "ExposureTime": 100.0 / (iso * ratio)}
+            os.link(pairs[0][1], path)
+        else:  # GT at ids 1, 6, 11, 16; the rest never matched
+            meta = ({"ISO": 100, "ExposureTime": 1.0} if img_id in (1, 6, 11, 16)
+                    else {"ISO": 50, "ExposureTime": 1.0})
+            os.link(pairs[0][0], path)
+        with open(os.path.splitext(path)[0] + ".json", "w") as f:
+            json.dump(meta, f)
+    return sid, eld
+
+
+def phase_golden(dev):
+    """ROADMAP 1.18 on the card: the golden trees (``_golden_trees``) indexed
+    by ``pnnp_tpu_torch/tools/get_dataset_infos.py``, a seeded nf=32
+    UNetSeeInDark saved as a reference ``.pth`` state_dict, and
+    ``pnnp_tpu_torch/tools/golden_parity.py --config SonyA7S2_PNNP`` with
+    the config's runfile swapped, in this process, for PNNP.yml's Sony
+    values on the trees (no dark-shading resources: no ``command``): exit 1
+    against BASELINE.md's numbers with 5 sweeps and status ``fail``, then
+    exit 0 with the config's sweeps replaced by the first run's own numbers.
+    Every frame of both sweeps one ``hopper`` SSIM launch (under
+    ``golden``). Returns (launches by path, what was checked)."""
+    import yaml
+
+    from pnnp_tpu_torch.models import UNetSeeInDark
+    from pnnp_tpu_torch.tools import golden_parity as gp
+    from pnnp_tpu_torch.tools.get_dataset_infos import main as build_infos
+
+    t0 = time.perf_counter()
+    cwd, saved = os.getcwd(), gp.CONFIGS["SonyA7S2_PNNP"]
+    with tempfile.TemporaryDirectory(prefix="pnnp_golden_") as root:
+        sid, eld = _golden_trees(root)
+        infos = os.path.join(root, "infos")
+        build_infos(["--dstname", "SID", "--root_dir", sid, "--mode", "evaltest",
+                     "--out_dir", infos])
+        build_infos(["--dstname", "ELD", "--root_dir", eld, "--out_dir", infos])
+        ckpt = os.path.join(root, "SonyA7S2_PNNP_Unet.pth")
+        torch.save(UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(GOLDEN_SEED))
+                   .state_dict(), ckpt)
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), saved["runfile"])) as f:
+            run = yaml.safe_load(f)
+        for key in ("dst", "dst_train", "dst_eval", "dst_test"):
+            run[key] = dict(run[key], command="", root_dir=root, H=MOSAIC_H, W=MOSAIC_W)
+        runfile = os.path.join(root, "PNNP_golden.yml")
+        with open(runfile, "w") as f:
+            yaml.safe_dump(run, f)
+        argv = ["--config", "SonyA7S2_PNNP", "--ckpt", ckpt, "--infos_dir", infos]
+        os.chdir(root)
+        try:
+            gp.CONFIGS["SonyA7S2_PNNP"] = dict(saved, runfile=runfile)
+            with _Counted() as c:
+                rc_fail, text = _tee(gp.main, argv + ["--workdir", os.path.join(root, "w1")],
+                                     device=dev)
+                fail = json.loads(text.strip().splitlines()[-1])
+                with open(os.path.join("logs", f"log_{run['model_name']}.log")) as f:
+                    own = gp.parse_summaries(f.read())[-len(saved["sweeps"]):]
+                gp.CONFIGS["SonyA7S2_PNNP"] = dict(
+                    saved, runfile=runfile,
+                    sweeps=[(label, p, s) for (label, _, _), (p, s) in zip(saved["sweeps"], own)])
+                rc_pass, text = _tee(gp.main, argv + ["--workdir", os.path.join(root, "w2")],
+                                     device=dev)
+                passed = json.loads(text.strip().splitlines()[-1])
+        finally:
+            gp.CONFIGS["SonyA7S2_PNNP"] = saved
+            os.chdir(cwd)
+    _check(rc_fail == 1 and fail == {"config": "SonyA7S2_PNNP", "status": "fail", "sweeps": 5,
+                                     "failed": 5}, f"golden_parity against CONFIGS: {rc_fail} {fail}")
+    _check(rc_pass == 0 and passed["status"] == "pass" and passed["sweeps"] == 5,
+           f"golden_parity against its own numbers: {rc_pass} {passed}")
+    _check(all(math.isfinite(p) and math.isfinite(s) for p, s in own), f"golden sweeps {own}")
+    want = 2 * (sum(n for n, _, _ in GOLDEN_SID) + len(GOLDEN_ELD))
+    _check(c.launches["by_route"]["hopper"] == c.launches["ssim"] == want,
+           f"golden_parity: SSIM launches {c.launches}, not {want} hopper")
+    out = {"sweeps": own, "fail": fail, "pass": passed, "frames_per_run": want // 2,
+           "wall_s": time.perf_counter() - t0}
+    print(f"golden: exit {rc_fail} against CONFIGS, {rc_pass} against the run's own numbers "
+          f"{own}; {c.launches}; {out['wall_s']:.1f} s", flush=True)
+    return {"golden": c.launches}, out
+
+
+def phase_proxy_tools(dev, params):
+    """ROADMAP 1.19 on the card: ``diagnose_proxy_fit`` on the ISO ladder's
+    trained proxy (``params``, d=256), its closed-form columns (the pixel
+    model variance, both heads' tail_pi / tail_b) within 1e-5 relative of
+    the same tool on the CPU and the centred heads' means within 1e-5 of
+    the law's scale; both oracles at ``ORACLE_*_ARGS``, their KLDs finite,
+    with their wall times."""
+    from pnnp_tpu_torch.tools import diagnose_proxy_fit, oracle_proxy_family, oracle_row_deconv
+
+    t0 = time.perf_counter()
+    argv = [params, "--d", "256"]
+    card = diagnose_proxy_fit.main(argv, device=dev)
+    cpu = diagnose_proxy_fit.main(argv + ["--cpu"])
+    errs = {}
+    for a, b in zip(card, cpu):
+        for k in ("px_var_model", "px_tail_pi", "px_tail_b", "row_tail_pi", "row_tail_b"):
+            errs[f"{a['iso']}_{k}"] = abs(a[k] - b[k]) / abs(b[k])
+        for k, scale in (("mean_px", b["px_var_model"] ** 0.5), ("mean_row", b["row_std"])):
+            errs[f"{a['iso']}_{k}"] = abs(a[k] - b[k]) / scale
+    _check(max(errs.values()) <= 1e-5, f"diagnose_proxy_fit card vs cpu: {errs}")
+    diag_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    row = oracle_row_deconv.main(ORACLE_ROW_ARGS, device=dev)
+    row_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    fam = oracle_proxy_family.main(ORACLE_FAMILY_ARGS, device=dev)
+    fam_s = time.perf_counter() - t1
+    _check(all(math.isfinite(r["kld_vs_gauss"]) for r in row)
+           and all(math.isfinite(r["kld"]) and math.isfinite(r["row_kld"]) for r in fam),
+           f"oracles: {row} {fam}")
+    out = {"diagnose": card, "diagnose_card_vs_cpu_max": max(errs.values()), "diagnose_s": diag_s,
+           "oracle_row_deconv": row, "oracle_row_deconv_s": row_s,
+           "oracle_proxy_family": fam, "oracle_proxy_family_s": fam_s}
+    print(f"proxy tools: diagnose card vs cpu {out['diagnose_card_vs_cpu_max']:.2e} "
+          f"({diag_s:.1f} s); oracle_row_deconv {ORACLE_ROW_ARGS} {row_s:.1f} s; "
+          f"oracle_proxy_family {ORACLE_FAMILY_ARGS} {fam_s:.1f} s", flush=True)
+    return out
+
+
+def phase_int8_tools(dev, w8a8_ms):
+    """ROADMAP 1.20 on the card at the Sony frame: ``ablate_int8_quantset``
+    (every subset), ``profile_prefix_int8`` (its full prefix within
+    ``PREFIX_TOL`` of ``w8a8_ms``, the W8A8 eval step timed in this process
+    by ``phase_packed_timings``; each of its seven marginals above
+    ``MARGINAL_FLOOR`` of the full prefix, since a longer prefix does more
+    work),
+    ``bench_int8`` (every case) and ``int8_roofline`` (the walk's FLOP
+    inventory equal to the JAX tool's table; the int4 probe's JSON form)."""
+    from pnnp_tpu_torch.tools import (
+        ablate_int8_quantset,
+        bench_int8,
+        int8_roofline,
+        profile_prefix_int8,
+    )
+
+    t0 = time.perf_counter()
+    ablate = ablate_int8_quantset.main(ABLATE_ARGS, device=dev)
+    _check([r["subset"] for r in ablate] == list(ablate_int8_quantset.SUBSETS)
+           and all(r["ms_frame"] > 0 for r in ablate), f"ablate: {ablate}")
+    prefix = profile_prefix_int8.main(PREFIX_ARGS, device=dev)
+    full = prefix[-1][1] * 1e3
+    marginals = [(b - a) * 1e3 for a, b in zip([0.0] + [t for _, t in prefix[:-1]],
+                                                [t for _, t in prefix])]
+    _check(all(m > MARGINAL_FLOOR * full for m in marginals)
+           and abs(full - w8a8_ms) <= PREFIX_TOL * w8a8_ms,
+           f"profile_prefix_int8: full prefix {full} ms, marginals {marginals}, "
+           f"W8A8 step {w8a8_ms} ms")
+    bench = bench_int8.main([], device=dev)
+    _check(len(bench) == len(bench_int8.CASES), f"bench_int8: {bench}")
+    derived = int8_roofline.inventory(ablate_int8_quantset.make_tparams(dev),
+                                      torch.zeros(ablate_int8_quantset.FRAME, device=dev))
+    h2, w2 = ablate_int8_quantset.FRAME[2:]
+    _check(derived == int8_roofline.by_class(int8_roofline.reference_bands(h2, w2)),
+           f"int8_roofline: inventory {derived}")
+    bands, text = _tee(int8_roofline.main, ROOFLINE_ARGS, device=dev)
+    roof = json.loads(text.strip().splitlines()[-1])
+    _check(roof["int4"] == {"error": int8_roofline.NO_INT4} and len(bands) == 7,
+           f"int8_roofline: {roof}")
+    out = {"ablate": ablate, "prefix_ms": [(n, t * 1e3) for n, t in prefix],
+           "marginals_ms": marginals, "full_prefix_ms": full, "w8a8_step_ms": w8a8_ms,
+           "bench_int8": bench, "roofline": roof, "wall_s": time.perf_counter() - t0}
+    print(f"int8 tools: full prefix {full:.3f} ms against the W8A8 step {w8a8_ms:.3f} ms; "
+          f"{out['wall_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3261,16 +3576,18 @@ def main() -> int:
     train_launches, train_run, batch = phase_train_main_path(dev)
     step_check = phase_train_step_check(dev)
     proxy_checks = phase_proxy_checks(dev)
+    poisson = phase_poisson(dev)
     # validate_nf, the reduced A/B and validate_int8 run beside the ladder,
     # each in a process of its own
     # (validate_int8's checkpoint serves phase 13's --int8 eval)
     vint8_dir = tempfile.TemporaryDirectory(prefix="pnnp_validate_int8_")
     vint8_ckpt = os.path.join(vint8_dir.name, "validate_int8.ckpt")
+    ladder_params = os.path.join(vint8_dir.name, "ladder_proxy.pkl")
     validate_nf, ab = start_validate_nf(), start_ab()
     vint8 = start_validate_int8(vint8_ckpt)
     vnm, demos = start_validate_noise_model(), start_demos()
     try:
-        ladder = phase_iso_ladder(dev)
+        ladder = phase_iso_ladder(dev, ladder_params)
         validate_nf = finish_validate_nf(validate_nf)
         ab = finish_ab(ab)
         vint8 = finish_validate_int8(vint8)
@@ -3281,6 +3598,7 @@ def main() -> int:
             if isinstance(started, tuple) and started[0].poll() is None:
                 started[0].kill()
                 started[0].wait()
+    proxy_tools = phase_proxy_tools(dev, ladder_params)
     pnnp_launches, pnnp_runs, proxy_params = phase_pnnp_paths(dev)
     with tempfile.TemporaryDirectory(prefix="pnnp_baselines_") as base:
         base_launches, base_runs, keep = phase_baselines(dev, base)
@@ -3305,7 +3623,9 @@ def main() -> int:
     int8_launches, int8_runs = phase_int8_eval(dev, vint8_ckpt)
     vint8_dir.cleanup()
     packed_timings = phase_packed_timings(dev, batch)
+    int8_tools = phase_int8_tools(dev, packed_timings["eval"]["sony"]["ms"]["int8"]["mean"])
     tools_launches, tools = phase_tools(dev)
+    golden_launches, golden = phase_golden(dev)
     md_launches, multidevice = phase_multidevice(dev)
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
@@ -3319,6 +3639,7 @@ def main() -> int:
                    packed_int8=dict(checks=packed_checks, **int8_runs, ab=packed_timings,
                                     validate_int8=vint8),
                    multidevice=multidevice,
+                   poisson=poisson, golden=golden, proxy_tools=proxy_tools, int8_tools=int8_tools,
                    tools=dict(tools, validate_noise_model=vnm, demos=demos,
                               flow_library_card_vs_cpu=dict(errors=bijectors,
                                                             wall_s=bijectors_s)))
@@ -3327,11 +3648,11 @@ def main() -> int:
     # (generic, rgb_quality's route); launches of each path's run (the eval
     # run, the train run's, the PNNP run's, the baseline runs' and the NF.yml
     # runs' eval legs, the rgb, unfused, LED and predict runs, the int8 and
-    # packed-train runs, the ranks' sharded path, eval_fullres's three modes
-    # and bench_eval_loop) and their sum
+    # packed-train runs, the ranks' sharded path, eval_fullres's three modes,
+    # bench_eval_loop and golden_parity's two sweeps) and their sum
     by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches,
                **base_launches, **flow_launches, **eval_launches, **int8_launches,
-               "sharded": md_launches, **tools_launches}
+               "sharded": md_launches, **tools_launches, **golden_launches}
     kernels = [dict(
         name=name, route="cuda", source="pnnp_tpu_torch/csrc/ssim.cu",
         replaces="pnnp_tpu/kernels/ssim.py:39",

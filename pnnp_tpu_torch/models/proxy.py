@@ -112,14 +112,20 @@ class QuantileHead(nn.Module):
         raw = self.bins(h)
         if return_raw:
             return raw
-        d = self.d
-        shift = 0.0 if log_anchor is None else log_anchor
+        return self.from_raw(raw, 0.0 if log_anchor is None else log_anchor)
+
+    @classmethod
+    def from_raw(cls, raw: torch.Tensor, shift=0.0) -> HeadParams:
+        """HeadParams from the raw head output [n, d+3] (the MLP's, or a
+        directly fitted one as the oracle tools fit): softmax bin heights,
+        clamped log-scales (plus ``shift``) and the sigmoid tail weight."""
+        d = raw.shape[-1] - 3
         heights = torch.softmax(raw[..., :d], dim=-1)
-        log_scale = torch.clamp(raw[..., d:d + 1] + self.LOG_SCALE_INIT + shift,
-                                *self.LOG_SCALE_RANGE)
-        tail_pi = torch.sigmoid(raw[..., d + 1:d + 2] + self.TAIL_LOGIT_INIT)
-        tail_b = torch.exp(torch.clamp(raw[..., d + 2:d + 3] + self.LOG_SCALE_INIT + shift,
-                                       *self.LOG_TAIL_RANGE))
+        log_scale = torch.clamp(raw[..., d:d + 1] + cls.LOG_SCALE_INIT + shift,
+                                *cls.LOG_SCALE_RANGE)
+        tail_pi = torch.sigmoid(raw[..., d + 1:d + 2] + cls.TAIL_LOGIT_INIT)
+        tail_b = torch.exp(torch.clamp(raw[..., d + 2:d + 3] + cls.LOG_SCALE_INIT + shift,
+                                       *cls.LOG_TAIL_RANGE))
         # monotone knots on [-1, 1], scaled: v_k = scale * (2*cum_k - 1)
         cum = torch.cumsum(heights, dim=-1)
         cum = torch.cat([torch.zeros_like(cum[..., :1]), cum], dim=-1)

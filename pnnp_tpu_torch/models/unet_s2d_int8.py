@@ -87,18 +87,27 @@ def _dequant(acc: torch.Tensor, layer: dict, bias: bool = True) -> torch.Tensor:
     return y.add_(layer["bias"][:, None, None]) if bias else y
 
 
+# The bands of the walk, in order (tools/profile_prefix_int8.py's prefixes):
+# ``_walk(..., stop=i)`` returns the output of band i.
+BANDS = ("head", "c2", "c3", "c4+c5", "c6+c7", "c8", "tail")
+
+
 def _walk(tparams: dict, g1: torch.Tensor, dtype: torch.dtype, record=None,
-          qparams=None, record_pct: float = 100.0, trace=None) -> torch.Tensor:
+          qparams=None, record_pct: float = 100.0, trace=None,
+          stop=None) -> torch.Tensor:
     """The packed forward's skeleton (JAX's ``_walk``).
 
     ``record``: a dict to fill with each quantizable input's |x| statistic
     (the max, or the ``record_pct`` percentile; calibration). ``qparams``:
     quantized weights (int8 mode). With both None this is the bf16 hybrid
     forward. ``trace``: a list to append ``(name, codes)`` of every
-    quantized input to (tests count flipped codes with it)."""
+    quantized input to (tests count flipped codes with it). ``stop``: the
+    index in :data:`BANDS` of the last band to run; its output is returned
+    (a prefix of the forward; None or 6 runs it all)."""
     k = lambda name: tparams[name]["kernel"]
     b = lambda name: tparams[name]["bias"]
     quantized = lambda name: qparams is not None and name in qparams["act_scale"]
+    last = len(BANDS) - 1 if stop is None else stop
 
     def q(x, name):
         """Observe (calibration) or quantize (int8) a conv input."""
@@ -149,13 +158,25 @@ def _walk(tparams: dict, g1: torch.Tensor, dtype: torch.dtype, record=None,
     g1 = g1.to(dtype)
     c1g = conv_q(conv_q(g1, "conv1_1"), "conv1_2")
     p1 = _group_max(c1g)
+    if last == 0:
+        return p1
     c2 = conv_q(conv_q(p1, "conv2_1"), "conv2_2")
+    if last == 1:
+        return c2
     c3 = conv_q(conv_q(_pool(c2), "conv3_1"), "conv3_2")
+    if last == 2:
+        return c3
     c4 = conv_q(conv_q(_pool(c3), "conv4_1"), "conv4_2")
     c5 = conv_q(conv_q(_pool(c4), "conv5_1"), "conv5_2")
+    if last == 3:
+        return c5
     c6 = conv_q(dec_conv_q(up(c5, "upv6"), c4, "conv6_1"), "conv6_2")
     c7 = conv_q(dec_conv_q(up(c6, "upv7"), c3, "conv7_1"), "conv7_2")
+    if last == 4:
+        return c7
     c8 = conv_q(dec_conv_q(up(c7, "upv8"), c2, "conv8_1"), "conv8_2")
+    if last == 5:
+        return c8
 
     up9_in = _with_ones(c8)
     if quantized("conv9_1u"):

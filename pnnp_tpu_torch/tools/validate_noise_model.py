@@ -41,7 +41,11 @@ DEVICE_SEED, ORACLE_SEED = 0, 1
 def oracle(rng, y, p, code, ratio):
     scale = p["wp"] - p["bl"]
     y_adu = y * scale / ratio
-    z = rng.poisson(np.maximum(y_adu / p["K"], 0)).astype(np.float64) * p["K"]
+    if "p" in code:
+        z = rng.poisson(np.maximum(y_adu / p["K"], 0)).astype(np.float64) * p["K"]
+    else:  # the port's Gaussian stand-in for shot noise: variance y*K
+        std = np.sqrt(np.maximum(y_adu / p["K"], 1e-10)) * p["K"]
+        z = y_adu + rng.normal(0, 1, y.shape) * std
     if "b" not in code:
         if "g" in code:
             z += stats.tukeylambda.rvs(p["lam"], scale=p["sigTL"], size=y.shape,
@@ -69,6 +73,34 @@ def row_params(camera: str, iso: int) -> dict:
     return p
 
 
+def row_kld(dev, camera: str, iso: int, code: str, ratio: float, samples: int,
+            signal: float = 0.002, seed: int = DEVICE_SEED) -> dict:
+    """One row: ``samples`` draws of ``generate_noisy`` on ``dev`` from
+    ``seed`` against the oracle's from ``ORACLE_SEED``, at a flat signal;
+    returns the integer-ADU ``kl_fwd``/``kl_inv``/``kl_sym``."""
+    import torch
+
+    from pnnp_tpu_torch.ops.kld import kl_div_norm
+    from pnnp_tpu_torch.physics.noise import generate_noisy
+
+    n = int(np.sqrt(samples / 4))
+    p = row_params(camera, iso)
+    full = lambda v: torch.full((1,), float(v), device=dev)
+    params = {"K": full(p["K"]), "sigTL": full(p["sigTL"]), "sigR": full(p["sigR"]),
+              "sigGs": full(p["sigGs"]), "bias": torch.zeros((1, 4), device=dev),
+              "lam": full(p["lam"]), "q": full(p["q"]), "ratio": full(ratio),
+              "wp": full(p["wp"]), "bl": full(p["bl"])}
+    y = torch.full((1, 4, n, n), signal, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z_dev = generate_noisy(gen, y, params, code).cpu().numpy()
+    rng = np.random.default_rng(ORACLE_SEED)
+    z_ref = oracle(rng, np.full((1, n, n, 4), signal), p, code, ratio)
+    span = p["wp"] - p["bl"]
+    res = kl_div_norm(z_dev / ratio * span, z_ref / ratio * span,
+                      bl=p["bl"], wp=int(p["wp"]))
+    return {k: float(res[k]) for k in ("kl_fwd", "kl_inv", "kl_sym")}
+
+
 def main(argv=None, device=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--samples", type=int, default=2_000_000)
@@ -78,8 +110,6 @@ def main(argv=None, device=None):
 
     import torch
 
-    from pnnp_tpu_torch.ops.kld import kl_div_norm
-    from pnnp_tpu_torch.physics.noise import generate_noisy
     from pnnp_tpu_torch.utils.device import resolve_device
 
     dev = torch.device("cpu") if a.cpu else resolve_device(device)
@@ -88,24 +118,10 @@ def main(argv=None, device=None):
           f"{'kl_fwd':>9s} {'kl_inv':>9s} {'kl_sym':>9s}")
     rows = []
     for camera, iso, code, ratio in ROWS:
-        p = row_params(camera, iso)
-        full = lambda v: torch.full((1,), float(v), device=dev)
-        params = {"K": full(p["K"]), "sigTL": full(p["sigTL"]), "sigR": full(p["sigR"]),
-                  "sigGs": full(p["sigGs"]), "bias": torch.zeros((1, 4), device=dev),
-                  "lam": full(p["lam"]), "q": full(p["q"]), "ratio": full(ratio),
-                  "wp": full(p["wp"]), "bl": full(p["bl"])}
-        y = torch.full((1, 4, n, n), a.signal, device=dev)
-        gen = torch.Generator(device=dev).manual_seed(DEVICE_SEED)
-        z_dev = generate_noisy(gen, y, params, code).cpu().numpy()
-        rng = np.random.default_rng(ORACLE_SEED)
-        z_ref = oracle(rng, np.full((1, n, n, 4), a.signal), p, code, ratio)
-        span = p["wp"] - p["bl"]
-        res = kl_div_norm(z_dev / ratio * span, z_ref / ratio * span,
-                          bl=p["bl"], wp=int(p["wp"]))
+        res = row_kld(dev, camera, iso, code, ratio, a.samples, a.signal)
         print(f"{camera:10s} {iso:6d} {code:>6s} {ratio:6.0f} "
               f"{res['kl_fwd']:9.5f} {res['kl_inv']:9.5f} {res['kl_sym']:9.5f}", flush=True)
-        rows.append({"camera": camera, "iso": iso, "code": code, "ratio": ratio,
-                     **{k: float(res[k]) for k in ("kl_fwd", "kl_inv", "kl_sym")}})
+        rows.append({"camera": camera, "iso": iso, "code": code, "ratio": ratio, **res})
     print(json.dumps({"samples": 4 * n * n, "device": str(dev), "rows": rows}), flush=True)
     return rows
 

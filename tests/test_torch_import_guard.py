@@ -12,6 +12,11 @@ import yaml
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pnnp_tpu")
+# the real-data CLIs, the proxy research tools, the int8 serving tools and
+# the Poisson check
+SLICE11_TOOLS = ("get_dataset_infos", "golden_parity", "diagnose_proxy_fit",
+                 "oracle_row_deconv", "oracle_proxy_family", "ablate_int8_quantset",
+                 "profile_prefix_int8", "bench_int8", "int8_roofline", "check_poisson")
 
 
 def _forbidden(module: str) -> bool:
@@ -67,6 +72,7 @@ def test_no_forbidden_import_in_sources():
             "pnnp_tpu_torch/tools/validate_noise_model.py", "pnnp_tpu_torch/tools/eval_fullres.py",
             "pnnp_tpu_torch/tools/bench_eval_loop.py", "pnnp_tpu_torch/tools/demo_train.py",
             "pnnp_tpu_torch/tools/demo_pnnp_pipeline.py"} <= names
+    assert {f"pnnp_tpu_torch/tools/{m}.py" for m in SLICE11_TOOLS} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert not bad, bad
@@ -91,6 +97,7 @@ def test_importing_the_port_loads_no_forbidden_module():
         "import pnnp_tpu_torch.models.flows.conditional, pnnp_tpu_torch.models.flows.spline\n"
         "import pnnp_tpu_torch.tools.validate_noise_model, pnnp_tpu_torch.tools.eval_fullres\n"
         "import pnnp_tpu_torch.tools.bench_eval_loop, pnnp_tpu_torch.tools.demo_pnnp_pipeline\n"
+        + "".join(f"import pnnp_tpu_torch.tools.{m}\n" for m in SLICE11_TOOLS) +
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
         "assert {'pnnp_tpu_torch.trainer', 'pnnp_tpu_torch.data.phone',\n"
@@ -170,3 +177,72 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:1")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("tool", SLICE11_TOOLS)
+def test_new_tools_import_with_jax_blocked(tool):
+    """Each tool imports, and builds its argument parser, in a process where
+    importing any forbidden package raises."""
+    code = (
+        "import importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in %r:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in %r]:\n"
+        "    del sys.modules[m]\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import pnnp_tpu_torch.tools.%s as t\n"
+        "try:\n"
+        "    t.main(['--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "print('OK', sorted(m for m in sys.modules if m.split('.')[0] in %r))\n"
+        % (FORBIDDEN, FORBIDDEN, tool, FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "OK []" in out.stdout, out.stdout
+
+
+def test_new_tools_raise_without_cuda(tmp_path, monkeypatch):
+    """No CUDA and no ``--cpu``: every new tool that computes refuses the
+    host (golden_parity after its preflight, which needs no device)."""
+    import pickle
+
+    import torch
+
+    from pnnp_tpu_torch.models import params_to_jax
+    from pnnp_tpu_torch.models.proxy import PixelWiseISOProxy
+    from pnnp_tpu_torch.tools import (
+        ablate_int8_quantset,
+        bench_int8,
+        check_poisson,
+        diagnose_proxy_fit,
+        golden_parity,
+        int8_roofline,
+        oracle_proxy_family,
+        oracle_row_deconv,
+        profile_prefix_int8,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = tmp_path / "p.pkl"
+    with open(params, "wb") as f:
+        pickle.dump(params_to_jax(PixelWiseISOProxy(d=8).state_dict()), f)
+    for tool, argv in ((check_poisson, ["--n", "10"]), (diagnose_proxy_fit, [str(params), "--d", "8"]),
+                       (oracle_row_deconv, ["--steps", "1"]), (oracle_proxy_family, ["--steps", "1"]),
+                       (ablate_int8_quantset, ["--small"]), (profile_prefix_int8, ["--small"]),
+                       (bench_int8, ["--small"]), (int8_roofline, ["--small"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main(argv)
+    ckpt = tmp_path / "c.pth"
+    torch.save({}, ckpt)
+    infos = tmp_path / "infos"
+    infos.mkdir()
+    for name in golden_parity.CONFIGS["SonyA7S2_PNNP"]["infos"]:
+        (infos / name).write_bytes(b"")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        golden_parity.main(["--config", "SonyA7S2_PNNP", "--ckpt", str(ckpt),
+                            "--infos_dir", str(infos), "--workdir", str(tmp_path / "wd")])

@@ -140,6 +140,19 @@ def test_poisson_matches_jax_sampler(lam):
     assert 0.5 * np.sum((p - q) * np.log(p / q)) < 2e-3
 
 
+@pytest.mark.parametrize("lam", [1.0, 4.0, 16.0, 23.0, 64.0, 100.0])
+def test_poisson_matches_scipy(lam):
+    """The sampler against ``scipy.stats.poisson`` (tools/check_poisson.py's
+    table): 400k draws, mean and variance within 2% of lam, the count
+    histogram's KLD against the exact pmf within 4x its sampling floor
+    (bins - 1) / (2n)."""
+    from pnnp_tpu_torch.tools.check_poisson import sampler_rows
+
+    (r,) = sampler_rows(torch.device("cpu"), [lam], n=400_000, seed=int(lam))
+    assert abs(r["mean_rel"]) < 0.02 and abs(r["var_rel"]) < 0.02, r
+    assert r["kl"] < 4 * r["kl_floor"], r
+
+
 def _moments_close(got: dict, ref: dict, keys, rtol_std=0.06):
     """Means within 5 standard errors of their difference, std within
     ``rtol_std``, ranges within 5% of the spread; constants equal."""

@@ -38,6 +38,7 @@ the spawned children import it by name.
   alone.
 """
 
+import faulthandler
 import os
 import pickle
 import time
@@ -62,6 +63,11 @@ HALO = 96
 
 # ------------------------------------------------------------------ spawning
 def _rank_entry(fn_name, rank, world, store, out, args):
+    # the rank's stderr goes to its own file, for _spawn's messages; a rank
+    # still running near the limit dumps every thread's stack there
+    err = open(os.path.join(out, f"rank{rank}.err"), "w")
+    os.dup2(err.fileno(), 2)
+    faulthandler.dump_traceback_later(SPAWN_TIMEOUT - 5.0, exit=False)
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
@@ -73,8 +79,23 @@ def _rank_entry(fn_name, rank, world, store, out, args):
         dist.destroy_process_group()
 
 
+def _rank_report(procs, out, tail=4000):
+    """Each rank's exit code (None: still running) and the end of its
+    stderr."""
+    lines = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out, f"rank{r}.err")
+        text = ""
+        if os.path.exists(path):
+            with open(path, errors="replace") as f:
+                text = f.read()[-tail:]
+        lines.append(f"--- rank {r}: exit code {p.exitcode}\n{text}")
+    return "\n".join(lines)
+
+
 def _spawn(tmp_path, fn_name, *args, world=2):
-    """Run ``fn_name(rank, *args)`` on ``world`` gloo ranks; their results."""
+    """Run ``fn_name(rank, *args)`` on ``world`` gloo ranks; their results.
+    A failure names every rank's exit code and the end of its stderr."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_entry,
                          args=(fn_name, r, world, str(tmp_path / "store"), str(tmp_path), args))
@@ -85,11 +106,13 @@ def _spawn(tmp_path, fn_name, *args, world=2):
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0.0))
     hung = [p for p in procs if p.is_alive()]
+    report = _rank_report(procs, str(tmp_path))
     for p in hung:
         p.kill()
         p.join()
-    assert not hung, f"{fn_name}: {len(hung)} rank(s) still running after {SPAWN_TIMEOUT} s"
-    assert [p.exitcode for p in procs] == [0] * world, f"{fn_name}: exit codes"
+    assert not hung, (f"{fn_name}: {len(hung)} rank(s) still running after "
+                      f"{SPAWN_TIMEOUT} s\n{report}")
+    assert [p.exitcode for p in procs] == [0] * world, f"{fn_name}: exit codes\n{report}"
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -517,15 +540,31 @@ def _trainer_runfile(root, name, mode, **extra):
     return path
 
 
+def _trainer_runfiles(root):
+    """The runfiles the two ranks of :func:`_trainer_worker` read, written
+    once, before the spawn: ranks that each wrote the same file could read
+    it while the other rank had it truncated (an empty yaml: that rank
+    raised, the other waited in a collective until the spawn's limit)."""
+    from pnnp_tpu_torch.data.fixtures import make_sid_runfile
+
+    _trainer_runfile(root, "eval", "eval")
+    _trainer_runfile(root, "unfused", "eval", disable_fused_eval=True)
+    _trainer_runfile(root, "train", "trainonly", stop_epoch=1)
+    run = make_sid_runfile(root, "PAR_Flow", patch_size=8, H=64, W=384, batch_size=2)
+    run.update(arch={"name": "NoiseFlow", "arch": FLOW_ARCH}, num_workers=0)
+    run["dst_train"]["dataset"] = "SID_Dataset"
+    with open(os.path.join(root, "flow.yml"), "w") as f:
+        yaml.safe_dump(run, f)
+
+
 def _trainer_worker(rank, root):
     import pnnp_tpu_torch.kernels.ssim as K
     from pnnp_tpu_torch.trainer import main
 
     os.chdir(root)
     out = {}
-    for name, extra in (("eval", {}), ("unfused", {"disable_fused_eval": True})):
-        t = main(["-f", _trainer_runfile(root, name, "eval", **extra), "--nofig"],
-                 device="cpu")
+    for name in ("eval", "unfused"):
+        t = main(["-f", os.path.join(root, f"{name}.yml"), "--nofig"], device="cpu")
         dist.barrier()  # rank 0 has written the pickle
         path = os.path.join(root, "metrics", "PAR_Unet_metrics.pkl")
         with open(path, "rb") as f:
@@ -537,21 +576,13 @@ def _trainer_worker(rank, root):
             t._fused_eval is None or t._fused_eval.__qualname__.startswith(
                 "make_eval_metrics_step_sharded"))
     K.launches = 0
-    t = main(["-f", _trainer_runfile(root, "train", "trainonly", stop_epoch=1), "--nofig"],
-             device="cpu")
+    t = main(["-f", os.path.join(root, "train.yml"), "--nofig"], device="cpu")
     out["train"] = {"n_data": t.n_data, "loader_shard": t._loader_shard,
                     "psnr": t.train_psnr.avg,
                     "state": {k: v.clone() for k, v in t.model.state_dict().items()}}
-    from pnnp_tpu_torch.data.fixtures import make_sid_runfile
     from pnnp_tpu_torch.trainer_nf import main as nf_main
 
-    run = make_sid_runfile(root, "PAR_Flow", patch_size=8, H=64, W=384, batch_size=2)
-    run.update(arch={"name": "NoiseFlow", "arch": FLOW_ARCH}, num_workers=0)
-    run["dst_train"]["dataset"] = "SID_Dataset"
-    path = os.path.join(root, "flow.yml")
-    with open(path, "w") as f:
-        yaml.safe_dump(run, f)
-    nf = nf_main(["-f", path, "--kind", "noise_flow"], device="cpu")
+    nf = nf_main(["-f", os.path.join(root, "flow.yml"), "--kind", "noise_flow"], device="cpu")
     out["flow"] = {"nll": nf.nll_meter.avg, "sharded": type(nf.train_step).__name__,
                    "state": {k: v.clone() for k, v in nf.model.state_dict().items()}}
     return out
@@ -568,6 +599,7 @@ def test_trainer_under_two_ranks(tmp_path):
     seeded = UNetSeeInDark(nf=NF, generator=torch.Generator().manual_seed(7))
     save_checkpoint(os.path.join(root, "checkpoints", "PAR_Unet_best_model.ckpt"),
                     params_to_jax(seeded.state_dict()), meta={"epoch": 0})
+    _trainer_runfiles(root)
     ranks = _spawn(tmp_path, "_trainer_worker", root)
     logs = open(os.path.join(root, "logs", "log_PAR_Unet.log")).read()
 
