@@ -218,6 +218,24 @@ and no result line):
    and against that run's own numbers (exit 0): 174 ``hopper`` launches
    under ``golden``.
 
+20. the bf16 forward and proxy-step profilers and the serving A/Bs (ROADMAP
+   1.21, ``phase_profile_tools``, after phase 12's timings, which it holds
+   against): ``profile_prefix``, ``profile_layers`` and ``profile_ablate``
+   in both forms (``channels_last``, ``packed``) at the Sony frame: the full
+   prefix within 10% of its one-piece anchor, each band's marginal above -5%
+   of it, the ``channels_last`` anchor at or below phase 12's bf16 eval step;
+   no layer above 105% of the dense bf16 peak; each ablated forward at or
+   below 105% of the base; ``profile_proxy_step`` in both forms at 8 x 512^2,
+   d=1024 (``step`` within 10% of an independent median of the same call,
+   the ``channels_last`` physics control within 10% of phase 12's bf16
+   ``pgrq`` step, each marginal above -5% of ``step``);
+   ``profile_proxy_synth`` (dot-vs-gather within 2e-3, the rebuilt ``full``
+   sample equal to the module's); ``bench_halfdense`` (its bf16 error
+   within 4x the dense hybrid's, both against the f32 hybrid);
+   ``bench_serving_variants`` over 24 Sony frames (the eager loop, k frames
+   per call, CUDA graphs of 1, 2, 4 frames bit-equal to the loop; int8
+   within 0.08 relative L2).
+
 Phase 2 also holds the ``generic`` route at the sRGB frames of
 ``rgb_quality`` (``SRGB_SONY``, ``SRGB_IMX686``), and phase 12 times it at
 the Sony one.
@@ -3554,6 +3572,133 @@ def phase_int8_tools(dev, w8a8_ms):
     return out
 
 
+# ------------------------------ the bf16 forward and proxy-step profilers, the A/Bs
+PROFILE_FORWARD_ARGS = ["--iters", "4", "--repeats", "3"]
+PROFILE_STEP_ARGS = ["--scan", "8", "--iters", "8"]  # the tool's defaults: bwd and step
+# differ by Adam and the gradients' read, 1-2% of the step
+PROFILE_SERVING_ARGS = ["--repeats", "3"]
+ANCHOR_TOL = 0.10  # the full prefix against its one-piece anchor; proxy step, physics step
+ABLATE_CEIL = 1.05  # an ablated forward, as a share of the base
+PEAK_CEIL = 1.05  # a layer's rate, as a share of the dense bf16 peak
+HALFDENSE_ERR = 4.0  # the half-dense bf16 error, as a multiple of the dense hybrid's
+INT8_REL_ERR = 0.08  # int8 frames against bf16 (tests/test_unet_s2d_int8.py's random-weight bar)
+
+
+def _profile_step_check(dev, form, step_ms):
+    """An independent CUDA-event median of the ``TrainStep`` call that
+    ``profile_proxy_step`` times as its ``step`` prefix."""
+    from pnnp_tpu_torch.tools import profile_proxy_step
+
+    s = profile_proxy_step.build(form, PROXY_D, False, dev)
+    ms = _time_ms(lambda: s.step(s.net, s.opt, s.batch, s.gen, 1), warmup=3, iters=10)
+    _check(abs(step_ms - ms) <= ANCHOR_TOL * ms,
+           f"profile_proxy_step {form}: step prefix {step_ms} ms, the step alone {ms} ms")
+    return ms
+
+
+def phase_profile_tools(dev, eval_ms, train_ms):
+    """ROADMAP 1.21 on the card at the full sizes, after phase 12's timings:
+    ``eval_ms`` is its bf16 fused eval step at the Sony frame, ``train_ms``
+    its bf16 ``pgrq`` train step. Holds: ``profile_prefix`` in both forms,
+    the full prefix within ``ANCHOR_TOL`` of the tool's one-piece anchor and
+    each marginal above ``MARGINAL_FLOOR`` of it, the ``channels_last``
+    anchor at or below ``eval_ms`` (the forward is a part of that step);
+    the one-piece forward's device time by kernel class (torch.profiler);
+    ``profile_layers``, no layer above ``PEAK_CEIL`` of the dense bf16 peak
+    (a higher reading is a wrong timing; the sum of parts is printed beside
+    the anchor, not held); ``profile_ablate``, each ablated forward at or
+    below ``ABLATE_CEIL`` of the base; ``profile_proxy_step`` in both forms,
+    ``step`` within ``ANCHOR_TOL`` of an independent median of the same call,
+    each marginal above ``MARGINAL_FLOOR`` of it, and in ``channels_last``
+    the physics control within ``ANCHOR_TOL`` of ``train_ms``;
+    ``profile_proxy_synth``, the dot-vs-gather error within its bf16 bound
+    and the rebuilt ``full`` sample equal to the module's within 1e-6 of its
+    max on the same generator state; ``bench_halfdense``, the half-dense bf16
+    error against the f32 hybrid within ``HALFDENSE_ERR`` times the dense
+    hybrid's; ``bench_serving_variants`` (``channels_last``), every
+    variant's frames bit-equal to the loop's, ``int8`` within
+    ``INT8_REL_ERR`` of them."""
+    from pnnp_tpu_torch.tools import (
+        bench_halfdense,
+        bench_serving_variants,
+        profile_ablate,
+        profile_layers,
+        profile_prefix,
+        profile_proxy_step,
+        profile_proxy_synth,
+    )
+
+    t0 = time.perf_counter()
+    out = {"eval_step_ms": eval_ms, "train_step_ms": train_ms}
+    for form in profile_prefix.FORMS:
+        args = PROFILE_FORWARD_ARGS + ["--form", form]
+        pre = profile_prefix.main(args, device=dev)
+        cum = [ms for _, ms in pre["rows"]]
+        full, marginals = cum[-1], [b - a for a, b in zip([0.0] + cum[:-1], cum)]
+        _check(abs(full - pre["anchor_ms"]) <= ANCHOR_TOL * pre["anchor_ms"]
+               and all(m > MARGINAL_FLOOR * full for m in marginals)
+               and (form == "packed" or pre["anchor_ms"] <= eval_ms),
+               f"profile_prefix {form}: {pre}, marginals {marginals}, eval step {eval_ms} ms")
+        fwd = profile_prefix.full_fn(form, profile_prefix.subject(
+            form, profile_prefix.make_net(dev)))
+        x = profile_prefix.make_input(form, dev)
+        with torch.no_grad():
+            prof = _profile(lambda: fwd(x), pre["anchor_ms"])
+        print(f"profile_prefix {form}: full prefix {full:.3f} ms, anchor "
+              f"{pre['anchor_ms']:.3f} ms, bf16 eval step {eval_ms:.3f} ms; the forward's "
+              f"device ms by class {prof['by_class_ms']}, idle {prof['idle_share']:.3f}",
+              flush=True)
+        lay = profile_layers.main(args, device=dev)
+        peak = max(r["tflops"] for r in lay["rows"] if r["tflops"] is not None)
+        _check(peak <= PEAK_CEIL * BF16_FLOP_PER_S / 1e12, f"profile_layers {form}: {lay}")
+        print(f"profile_layers {form}: sum of parts {lay['sum_ms']:.3f} ms beside the anchor "
+              f"{lay['anchor_ms']:.3f} ms; top rate {peak:.1f} TFLOP/s", flush=True)
+        abl = profile_ablate.main(args, device=dev)
+        _check(all(r["ms"] <= ABLATE_CEIL * abl["base_ms"] for r in abl["rows"]),
+               f"profile_ablate {form}: {abl}")
+        step = profile_proxy_step.main(PROFILE_STEP_ARGS + ["--form", form], device=dev)
+        cum = {r["prefix"]: r["cum_ms"] for r in step["rows"]}
+        alone = _profile_step_check(dev, form, cum["step"])
+        _check(all(r["marginal_ms"] > MARGINAL_FLOOR * cum["step"] for r in step["rows"])
+               and (form == "packed"
+                    or abs(step["physics_step_ms"] - train_ms) <= ANCHOR_TOL * train_ms),
+               f"profile_proxy_step {form}: {step}, pgrq train step {train_ms} ms")
+        print(f"profile_proxy_step {form}: step {cum['step']:.3f} ms (alone {alone:.3f}), "
+              f"physics {step['physics_step_ms']:.3f} ms (phase 12: {train_ms:.3f})", flush=True)
+        out[form] = {"prefix": pre, "forward_profile": prof, "layers": lay, "ablate": abl,
+                     "proxy_step": dict(step, step_alone_ms=alone)}
+        torch.cuda.empty_cache()
+
+    synth = profile_proxy_synth.main(PROFILE_FORWARD_ARGS, device=dev)
+    proxy, clean = profile_proxy_synth.setup(256, 8, False, dev)
+    with torch.no_grad():
+        ref = proxy.sample(clean, torch.tensor([profile_proxy_synth.ISO], device=dev),
+                           torch.Generator(device=dev).manual_seed(4))
+        got = profile_proxy_synth.build(proxy, "full")(torch.Generator(device=dev).manual_seed(4),
+                                                       clean)
+    full_err = float((got - ref).abs().max() / ref.abs().max())
+    _check(synth["dot_vs_gather"] <= profile_proxy_synth.DOT_BOUND and full_err <= 1e-6,
+           f"profile_proxy_synth: {synth}, full vs sample {full_err}")
+    out["proxy_synth"] = dict(synth, full_vs_sample=full_err)
+
+    half = bench_halfdense.main(PROFILE_FORWARD_ARGS, device=dev)
+    _check(half["err_vs_f32"]["halfdense"] <= HALFDENSE_ERR * half["err_vs_f32"]["hybrid"],
+           f"bench_halfdense: {half}")
+    out["halfdense"] = half
+    serving = bench_serving_variants.main(PROFILE_SERVING_ARGS, device=dev)
+    names = [r["variant"] for r in serving]
+    _check(names == ["loop", "sequential x2", "sequential x4", "graph x1", "graph x2",
+                     "graph x4", "int8"]
+           and all(r["max_abs_diff"] == 0.0 for r in serving if r["variant"] != "int8")
+           and serving[-1]["rel_err"] <= INT8_REL_ERR, f"bench_serving_variants: {serving}")
+    out["serving_variants"] = serving
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"profile tools: {out['wall_s']:.1f} s; serving ms/frame "
+          + ", ".join(f"{r['variant']} {r['ms_per_frame']:.3f}" for r in serving), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3643,6 +3788,8 @@ def main() -> int:
                    tools=dict(tools, validate_noise_model=vnm, demos=demos,
                               flow_library_card_vs_cpu=dict(errors=bijectors,
                                                             wall_s=bijectors_s)))
+    timings["profile_tools"] = phase_profile_tools(dev, timings["eval_step_ms"]["bfloat16"],
+                                                   timings["train_step_ms"]["bfloat16"])
 
     # one row per SSIM route: the main path's (hopper) and the first version
     # (generic, rgb_quality's route); launches of each path's run (the eval

@@ -389,19 +389,21 @@ def _upconv(t, kk, bias):
     return F.conv_transpose2d(t, kk, bias, stride=2)
 
 
+def _dec_conv(tparams: dict, up_t: torch.Tensor, skip: torch.Tensor, name: str) -> torch.Tensor:
+    """A decoder level's first conv, split-add: the upsampled and the skip
+    halves convolved apart, so the channel concat is never formed."""
+    kk, cu = tparams[name]["kernel"], up_t.shape[1]
+    return _lrelu(_conv_same(up_t, kk[:, :cu], tparams[name]["bias"])
+                  + _conv_same(skip, kk[:, cu:]))
+
+
 def _mid_levels(tparams: dict, p1: torch.Tensor) -> torch.Tensor:
-    """Levels 2-8 of the packed forward (true-layout convs): p1 -> c8. The
-    decoder's first conv of each level runs split-add: the upsampled and
-    the skip halves convolved apart, so the channel concat is never formed."""
+    """Levels 2-8 of the packed forward (true-layout convs): p1 -> c8."""
     k = lambda name: tparams[name]["kernel"]
     b = lambda name: tparams[name]["bias"]
     conv = lambda t, name: _lrelu(_conv_same(t, k(name), b(name)))
     up = lambda t, name: _upconv(t, k(name), b(name))
-
-    def dec_conv(up_t, skip, name):
-        kk = k(name)
-        cu = up_t.shape[1]
-        return _lrelu(_conv_same(up_t, kk[:, :cu], b(name)) + _conv_same(skip, kk[:, cu:]))
+    dec_conv = lambda up_t, skip, name: _dec_conv(tparams, up_t, skip, name)
 
     c2 = conv(conv(p1, "conv2_1"), "conv2_2")
     c3 = conv(conv(_pool(c2), "conv3_1"), "conv3_2")
@@ -418,6 +420,23 @@ def _with_ones(c8: torch.Tensor) -> torch.Tensor:
     return torch.cat([c8, ones], dim=1)
 
 
+def _conv9_1(tparams: dict, c8: torch.Tensor, c1g: torch.Tensor) -> torch.Tensor:
+    """conv9_1 with upv9 folded in: one conv over ``[c8 | ones]`` plus the
+    skip conv of ``c1g``."""
+    t9 = tparams["conv9_1"]
+    return _lrelu(_conv_same(_with_ones(c8), t9["kernel_up"], t9["bias"])
+                  + _conv_same(c1g, t9["kernel_skip"]))
+
+
+def _tail(tparams: dict, c8: torch.Tensor, c1g: torch.Tensor) -> torch.Tensor:
+    """Level 9 and the head: :func:`_conv9_1`, conv9_2, the group-diagonal
+    1x1 head."""
+    b = lambda name: tparams[name]["bias"]
+    c9g = _lrelu(_conv_same(_conv9_1(tparams, c8, c1g), tparams["conv9_2"]["kernel"],
+                            b("conv9_2")))
+    return _head(c9g, tparams["conv10_1"]["kernel"], b("conv10_1"))
+
+
 def unet_hybrid_forward_packed(tparams: dict, g1: torch.Tensor,
                                res_x: Optional[torch.Tensor] = None,
                                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -431,10 +450,7 @@ def unet_hybrid_forward_packed(tparams: dict, g1: torch.Tensor,
     conv = lambda t, name: _lrelu(_conv_same(t, k(name), b(name)))
 
     c1g = conv(conv(g1, "conv1_1"), "conv1_2")
-    c8 = _mid_levels(tparams, _group_max(c1g))
-    h9 = _lrelu(_conv_same(_with_ones(c8), tparams["conv9_1"]["kernel_up"], b("conv9_1"))
-                + _conv_same(c1g, tparams["conv9_1"]["kernel_skip"]))
-    out = _head(conv(h9, "conv9_2"), k("conv10_1"), b("conv10_1"))
+    out = _tail(tparams, _mid_levels(tparams, _group_max(c1g)), c1g)
     if res_x is not None:
         out = out + res_x.to(dtype)
     return out

@@ -1,5 +1,5 @@
-"""The Poisson sampler and the tools of the real-data, proxy-research and
-int8-serving groups on the card.
+"""The Poisson sampler and the tools of the real-data, proxy-research,
+int8-serving and profiling groups on the card.
 
 These tests need an NVIDIA GPU (``cuda`` marker) and skip on a host without
 one. This file imports no JAX, so it also runs on a machine without it:
@@ -17,6 +17,10 @@ one. This file imports no JAX, so it also runs on a machine without it:
 * The proxy and int8 tools at their small sizes on the card: they run,
   their JSON and rows have the CPU run's form, and the closed-form columns
   of ``diagnose_proxy_fit`` agree with the CPU's within 1e-5 relative.
+* The serving A/B's CUDA-graph variants (``graph x1``/``x2``/``x4``) give
+  the loop's frames bit for bit at a small frame, in both forms; each of
+  the bf16 forward, proxy-step and serving tools runs at ``--small`` on the
+  card with finite numbers.
 """
 
 import json
@@ -142,3 +146,56 @@ def test_int8_tools_on_card(card, capsys):
     tail = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert [b["band"] for b in bands] == list(BANDS) and tail["int4"] == {
         "error": int8_roofline.NO_INT4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["channels_last", "packed"])
+def test_graph_variants_equal_loop_on_card(card, form):
+    """Each CUDA-graph variant replays the loop's forward: its frames equal
+    the loop's bit for bit, at a small frame."""
+    from pnnp_tpu_torch.tools import bench_serving_variants as bs
+    from pnnp_tpu_torch.tools.profile_prefix import make_net
+
+    frames = bs.make_frames(form, card, bs.SMALL_K_FRAMES, small=True)
+    with torch.no_grad():
+        calls = bs.variants(form, make_net(card), frames)
+        outs = {}
+        for name, (call, k) in calls.items():
+            outs[name] = []
+            bs.serve(call, frames, k, lambda o, acc=outs[name]: acc.append(o.float().clone()))
+    assert {"graph x1", "graph x2", "graph x4"} <= set(outs)
+    for name, frames_out in outs.items():
+        if name != "int8":
+            assert all(torch.equal(a, b) for a, b in zip(frames_out, outs["loop"])), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool,argv", [
+    ("profile_prefix", ["--iters", "2", "--repeats", "2", "--form", "packed"]),
+    ("profile_layers", ["--iters", "2", "--repeats", "2"]),
+    ("profile_ablate", ["--iters", "2", "--repeats", "2"]),
+    ("profile_proxy_step", ["--iters", "2", "--scan", "2", "--d", "64"]),
+    ("profile_proxy_synth", ["--iters", "2", "--repeats", "2", "--d", "64"]),
+    ("bench_halfdense", ["--iters", "2", "--repeats", "2"]),
+    ("bench_serving_variants", ["--repeats", "2"]),
+])
+def test_profile_tools_small_on_card(card, tool, argv):
+    """Each of the bf16 forward, proxy-step and serving tools at its small
+    size on the card: it runs and its numbers are finite."""
+    import importlib
+
+    out = importlib.import_module(f"pnnp_tpu_torch.tools.{tool}").main(argv + ["--small"])
+    found = []
+
+    def walk(v):
+        if isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, float):
+            found.append(v)
+
+    walk(out)
+    assert found and all(np.isfinite(v) for v in found), out

@@ -17,6 +17,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pnnp_tpu")
 SLICE11_TOOLS = ("get_dataset_infos", "golden_parity", "diagnose_proxy_fit",
                  "oracle_row_deconv", "oracle_proxy_family", "ablate_int8_quantset",
                  "profile_prefix_int8", "bench_int8", "int8_roofline", "check_poisson")
+# the bf16 forward profilers, the proxy-step profilers and the serving A/Bs
+SLICE12_TOOLS = ("profile_prefix", "profile_layers", "profile_ablate", "profile_proxy_step",
+                 "profile_proxy_synth", "bench_halfdense", "bench_serving_variants")
 
 
 def _forbidden(module: str) -> bool:
@@ -72,7 +75,7 @@ def test_no_forbidden_import_in_sources():
             "pnnp_tpu_torch/tools/validate_noise_model.py", "pnnp_tpu_torch/tools/eval_fullres.py",
             "pnnp_tpu_torch/tools/bench_eval_loop.py", "pnnp_tpu_torch/tools/demo_train.py",
             "pnnp_tpu_torch/tools/demo_pnnp_pipeline.py"} <= names
-    assert {f"pnnp_tpu_torch/tools/{m}.py" for m in SLICE11_TOOLS} <= names
+    assert {f"pnnp_tpu_torch/tools/{m}.py" for m in SLICE11_TOOLS + SLICE12_TOOLS} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert not bad, bad
@@ -97,7 +100,7 @@ def test_importing_the_port_loads_no_forbidden_module():
         "import pnnp_tpu_torch.models.flows.conditional, pnnp_tpu_torch.models.flows.spline\n"
         "import pnnp_tpu_torch.tools.validate_noise_model, pnnp_tpu_torch.tools.eval_fullres\n"
         "import pnnp_tpu_torch.tools.bench_eval_loop, pnnp_tpu_torch.tools.demo_pnnp_pipeline\n"
-        + "".join(f"import pnnp_tpu_torch.tools.{m}\n" for m in SLICE11_TOOLS) +
+        + "".join(f"import pnnp_tpu_torch.tools.{m}\n" for m in SLICE11_TOOLS + SLICE12_TOOLS) +
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
         "assert {'pnnp_tpu_torch.trainer', 'pnnp_tpu_torch.data.phone',\n"
@@ -179,7 +182,7 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("tool", SLICE11_TOOLS)
+@pytest.mark.parametrize("tool", SLICE11_TOOLS + SLICE12_TOOLS)
 def test_new_tools_import_with_jax_blocked(tool):
     """Each tool imports, and builds its argument parser, in a process where
     importing any forbidden package raises."""
