@@ -116,7 +116,8 @@ and no result line):
    in f32 at the full frame (median per call, plus a torch.profiler
    breakdown by kernel and the device's idle share), each kernel route
    (mean over back-to-back launches, the two routes in turns) at the Sony
-   and IMX686 frames against its bound and its plain version, and the
+   and IMX686 frames, and ``generic`` at both sRGB frames of
+   ``rgb_quality``, against its bound and its plain version, and the
    train step at 8x512^2 ``pgrq`` in bf16 and f32 (median of 10 after 3
    warm-ups, the split synth / forward + backward / Adam, a profiler
    breakdown with the idle share, the FLOP bound) and the host loader's
@@ -236,14 +237,19 @@ and no result line):
    per call, CUDA graphs of 1, 2, 4 frames bit-equal to the loop; int8
    within 0.08 relative L2).
 
-Phase 2 also holds the ``generic`` route at the sRGB frames of
-``rgb_quality`` (``SRGB_SONY``, ``SRGB_IMX686``), and phase 12 times it at
-the Sony one.
+Phase 2 also holds the ``generic`` route at its own edges
+(``GENERIC_SHAPES``: C = 1, 2, 3, 5, 8, 16, rows of ``W*C % 4 != 0`` lanes,
+unaligned views, strip and warp-column edges at C = 3), at a C = 3 drift
+frame and at the sRGB frames of ``rgb_quality`` (``SRGB_SONY``,
+``SRGB_IMX686``), and its grid against the Python mirror
+(``kernels/ssim.py::generic_grid``); phase 12 times it at both sRGB frames
+and at the two raw frames.
 
 Output: one ``timings`` JSON line, one ``kernels`` JSON line (a row per
 SSIM route: ``ssim`` is the ``hopper`` route of the main path, timed at the
-raw Sony frame; ``ssim_generic`` the first CUDA version, the route of
-``rgb_quality``, timed at the sRGB Sony frame; ``launches`` sums the eval,
+raw Sony frame; ``ssim_generic`` the route of ``rgb_quality``, timed at the
+sRGB Sony frame; each with ``by_shape``, its time, bound and share at every
+frame phase 12 times it; ``launches`` sums the eval,
 the train, the PNNP, the four baseline, the two NF.yml, the rgb, unfused,
 LED, predict, int8 and packed-train runs, the two ranks' ``sharded``
 path, phase 15's ``fullres`` and ``eval_loop`` runs and phase 19's
@@ -287,7 +293,16 @@ KERNEL_SHAPES = [(7, 7, 4), (70, 96, 4), (71, 96, 4), (96, 131, 3),
                  (STRIP + 6, 121, 4), (STRIP + 7, 127, 4), (2 * STRIP + 5, 126, 4),
                  # rgb_quality's frames (the generic route at C = 3)
                  SRGB_SONY, SRGB_IMX686]
+# the generic route's edges (tests/test_torch_cuda_kernels.py GENERIC_SHAPES):
+# every lane shape (P = 4, 2, 1 pixels a lane), 4-byte copies (W*C % 4 != 0)
+# beside 16-byte ones, several warp columns with a ragged end, and at C = 3
+# the strip edges and widths into a warp's halo and the next warp
+GENERIC_SHAPES = [(70, 252, 1), (71, 97, 1), (70, 130, 2), (37, 97, 2),
+                  (40, 132, 5), (40, 77, 5), (40, 130, 8), (30, 64, 16), (29, 61, 16),
+                  (STRIP + 6, 121, 3), (STRIP + 7, 128, 3), (2 * STRIP + 5, 127, 3)]
+UNALIGNED = (37, 131)  # [H, W] of the views 4 bytes off 16-byte alignment, C = 3 and 4
 DRIFT = (1424, 256, 4)  # bright low-variance frame for the running-sum check
+DRIFT3 = (1424, 4256, 3)  # the same at C = 3: the generic route's strips of 49 rows
 MOSAIC_H, MOSAIC_W = 2848, 4256  # Sony A7S2 full frame, packed [1424, 2128, 4]
 SSIM_OPS_PER_WINDOW = 89  # 5 separable 7+7-tap sums (60) + the SSIM formula (29)
 TRAIN_SCENES, TRAIN_EPOCHS = 4, 2  # batch_size 1: one frame (8 crops) per step
@@ -485,27 +500,61 @@ def _to_dev(pair, dev):
     return [torch.from_numpy(a.reshape(H, W * C)).to(dev) for a in pair]
 
 
+def _unaligned(t):
+    """A copy of a CUDA tensor whose data start 4 bytes off 16-byte alignment."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def _two_launches(K, xf, yf, C, route, what):
+    """The SUM by ``route`` (None: the default), checked bit-identical over
+    two launches."""
+    a = K._ssim_call_sum(xf, yf, C, route=route)
+    b = K._ssim_call_sum(xf, yf, C, route=route)
+    torch.cuda.synchronize()
+    _check(torch.equal(a, b), f"ssim {what}: two launches differ")
+    return float(a)
+
+
 def phase_kernel_checks(dev):
-    """Each SSIM route against the plain version at every shape it takes;
-    returns the largest |kernel - plain| of the mean, by route."""
+    """The generic route's grid against its Python mirror; each SSIM route
+    against the plain version at every shape it takes. Returns the largest
+    |kernel - plain| of the mean by route, and what the grid checks read."""
     import pnnp_tpu_torch.kernels.ssim as K
 
+    # the generic grid: the kernel's partial count is the mirror's, over a
+    # sweep of every C at strip and warp-column sizes and at the full frames
+    lib = K._library()
+    sweep = [(H, W, C) for C in range(1, K.MAX_C + 1) for H in (7, 23, 38, 1424, 2848)
+             for W in (7, 61, 127, 2128, 4256)] + KERNEL_SHAPES + GENERIC_SHAPES + [DRIFT3]
+    bad = [shape for shape in sweep if lib.pnnp_ssim_num_partials(
+        shape[0], shape[1] * shape[2], shape[2], 0) != K.generic_grid(
+        shape[0], shape[1] * shape[2], shape[2]).n_partials]
+    _check(not bad, f"generic grid: the kernel's partial counts differ from the mirror's at {bad[:5]}")
+    # the blocks per SM the runtime keeps resident cover each grid's plan,
+    # so that every warp is resident in one wave
+    occupancy = {str(C): {"runtime": K.resident_blocks_per_sm(C, "generic"),
+                          "planned": K.generic_grid(64, 64 * C, C).blocks_per_sm}
+                 for C in range(1, K.MAX_C + 1)}
+    occupancy["hopper"] = {"runtime": K.resident_blocks_per_sm(4, "hopper"), "planned": 3}
+    _check(all(o["runtime"] >= o["planned"] for o in occupancy.values()),
+           f"SSIM blocks per SM below the grid's plan: {occupancy}")
+    print(f"generic grid: {len(sweep)} frames match the mirror; blocks per SM {occupancy}",
+          flush=True)
+
     max_err = dict.fromkeys(K.ROUTES, 0.0)
-    for shape in KERNEL_SHAPES:
+    for shape in KERNEL_SHAPES + GENERIC_SHAPES:
         H, W, C = shape
         xf, yf = _to_dev(_structured(shape, 0), dev)
         n = C * (H - 6) * (W - 6)
         ref = float(K.ssim_flat_plain(xf, yf, C))
         errs = {}
         for route in _routes(C):
-            a = K._ssim_call_sum(xf, yf, C, route=route)
-            b = K._ssim_call_sum(xf, yf, C, route=route)
-            torch.cuda.synchronize()
-            _check(torch.equal(a, b), f"ssim {route} {shape}: two launches differ")
-            errs[route] = abs(float(a) / n - ref)
+            a = _two_launches(K, xf, yf, C, route, f"{route} {shape}")
+            errs[route] = abs(a / n - ref)
             max_err[route] = max(max_err[route], errs[route])
-            _check(errs[route] < TOL, f"ssim {route} {shape}: kernel {float(a) / n} "
-                                      f"vs plain {ref}")
+            _check(errs[route] < TOL, f"ssim {route} {shape}: kernel {a / n} vs plain {ref}")
         if shape in (SONY, IMX686):
             gap = abs(float(K._ssim_call_sum(xf, yf, C, route="hopper"))
                       - float(K._ssim_call_sum(xf, yf, C, route="generic"))) / n
@@ -527,17 +576,33 @@ def phase_kernel_checks(dev):
         print(f"kernel check ssim {shape}: |kernel - plain| = "
               + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()), flush=True)
 
-    x, y = _bright(DRIFT, 0)
-    H, W, C = DRIFT
-    xf, yf = _to_dev((x, y), dev)
-    ref = _ssim_f64(x, y)
-    n = C * (H - 6) * (W - 6)
-    for route in _routes(C):
-        err = abs(float(K._ssim_call_sum(xf, yf, C, route=route)) / n - ref)
-        _check(err < TOL, f"ssim {route} drift frame {DRIFT}: {err} from float64")
-        print(f"kernel check ssim {route} bright frame {DRIFT}: |kernel - float64| = "
+    # views 4 bytes off 16-byte alignment: the default route is generic (C = 4
+    # too), on its 4-byte copies
+    for C in (3, 4):
+        H, W = UNALIGNED
+        xu, yu = (_unaligned(t) for t in _to_dev(_structured((H, W, C), 5), dev))
+        _check(K._route(H, W * C, C, xu.data_ptr(), yu.data_ptr()) == "generic",
+               f"unaligned C={C} view not routed to generic")
+        n = C * (H - 6) * (W - 6)
+        err = abs(_two_launches(K, xu, yu, C, None, f"unaligned C={C}") / n
+                  - float(K.ssim_flat_plain(xu, yu, C)))
+        max_err["generic"] = max(max_err["generic"], err)
+        _check(err < TOL, f"ssim generic unaligned C={C}: {err} from plain")
+        print(f"kernel check ssim generic unaligned [{H}, {W}, {C}]: |kernel - plain| = "
               f"{err:.3e}", flush=True)
-    return max_err
+
+    for shape in (DRIFT, DRIFT3):
+        x, y = _bright(shape, 0)
+        H, W, C = shape
+        xf, yf = _to_dev((x, y), dev)
+        ref = _ssim_f64(x, y)
+        n = C * (H - 6) * (W - 6)
+        for route in _routes(C):
+            err = abs(float(K._ssim_call_sum(xf, yf, C, route=route)) / n - ref)
+            _check(err < TOL, f"ssim {route} drift frame {shape}: {err} from float64")
+            print(f"kernel check ssim {route} bright frame {shape}: |kernel - float64| = "
+                  f"{err:.3e}", flush=True)
+    return max_err, {"generic_grid_frames": len(sweep), "blocks_per_sm": occupancy}
 
 
 def _smoke_runfile(root):
@@ -979,12 +1044,15 @@ def phase_timings(dev):
         del net, step, call
     torch.cuda.empty_cache()
 
-    # each route at the two full frames, in turns (hopper, generic, generic,
-    # hopper), against its bound; the plain version at the Sony frame. The
-    # kernels are timed on scratch allocated once (see _launcher).
-    # The generic route also at the sRGB Sony frame of rgb_quality (C = 3).
+    # each route at every frame it serves, in turns (hopper, generic,
+    # generic, hopper where both take it), against its bound, and the plain
+    # version: both routes at the raw Sony and IMX686 frames (generic
+    # forced), generic at rgb_quality's sRGB frames (C = 3). The kernels are
+    # timed on scratch allocated once (see _launcher).
     kernel_us, bounds, plain_ms = {}, {}, {}
-    for frame, shape in (("sony", SONY), ("imx686", IMX686), ("sony_srgb", SRGB_SONY)):
+    frames = {"sony": SONY, "imx686": IMX686, "sony_srgb": SRGB_SONY,
+              "imx686_srgb": SRGB_IMX686}
+    for frame, shape in frames.items():
         H, W, C = shape
         xf, yf = _to_dev(_structured(shape, 2), dev)
         routes = _routes(C)
@@ -1003,23 +1071,28 @@ def phase_timings(dev):
         t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
         bounds[frame] = {"bound_ms": max(t_bytes, t_ops), "bytes": bytes_moved, "ops": ops,
                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        if frame != "imx686":
-            plain_ms[frame] = _loop_ms(lambda: K.ssim_flat_plain(xf, yf, C), warmup=2, iters=10)
+        plain_ms[frame] = _loop_ms(lambda: K.ssim_flat_plain(xf, yf, C), warmup=2, iters=10)
         print(f"ssim at {frame} {list(shape)}: us by route {kernel_us[frame]} "
               f"(bound {bounds[frame]['bound_ms'] * 1e3:.1f} us)", flush=True)
-    # each route's row at the Sony frame of its path: hopper at the raw
-    # frame of the eval step, generic at the sRGB frame of rgb_quality
-    row_frame = {"hopper": ("sony", SONY), "generic": ("sony_srgb", SRGB_SONY)}
+        del xf, yf
+    torch.cuda.empty_cache()
+    # each route's time, bound and share at every frame it was timed at; its
+    # row at the Sony frame of its path: hopper at the raw frame of the eval
+    # step, generic at the sRGB frame of rgb_quality
+    by_shape = {route: {frame: {
+        "shape": [shape[0], shape[1] * shape[2]], "C": shape[2],
+        "ms": kernel_us[frame][route] / 1e3, "plain_ms": plain_ms[frame],
+        "bound_ms": bounds[frame]["bound_ms"], "bound_by": bounds[frame]["bound_by"],
+        "bound_share": bounds[frame]["bound_ms"] / (kernel_us[frame][route] / 1e3),
+    } for frame, shape in frames.items() if route in kernel_us[frame]} for route in K.ROUTES}
+    row_frame = {"hopper": "sony", "generic": "sony_srgb"}
     rows = {route: {
-        "shape": list(row_frame[route][1]),
-        "ms": kernel_us[row_frame[route][0]][route] / 1e3,
-        "plain_ms": plain_ms[row_frame[route][0]],
-        "bound_ms": bounds[row_frame[route][0]]["bound_ms"],
-        "bound_by": bounds[row_frame[route][0]]["bound_by"],
-        "bound_share": (bounds[row_frame[route][0]]["bound_ms"]
-                        / (kernel_us[row_frame[route][0]][route] / 1e3)),
+        "shape": list(frames[row_frame[route]]),
+        **{k: by_shape[route][row_frame[route]][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share")},
         # no single PyTorch call computes SSIM
         "library_ms": None,
+        "by_shape": by_shape[route],
     } for route in K.ROUTES}
     timings = {
         "frame": [1, h, w, 4], "mpix_per_frame": mpix,
@@ -3716,7 +3789,7 @@ def main() -> int:
           flush=True)
 
     phase_build()
-    max_err = phase_kernel_checks(dev)
+    max_err, grid_checks = phase_kernel_checks(dev)
     launches, main_err = phase_main_path(dev)
     train_launches, train_run, batch = phase_train_main_path(dev)
     step_check = phase_train_step_check(dev)
@@ -3774,7 +3847,7 @@ def main() -> int:
     md_launches, multidevice = phase_multidevice(dev)
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
-    timings.update(train_main_path=train_run, train_step_check=step_check,
+    timings.update(ssim_grid=grid_checks, train_main_path=train_run, train_step_check=step_check,
                    proxy_checks=proxy_checks, iso_ladder=ladder, **pnnp_runs,
                    proxy=phase_proxy_timings(dev, batch, proxy_params),
                    baselines=dict(base_runs, **base_timings),

@@ -1,4 +1,4 @@
-// Tiled-reduction SSIM for Hopper (sm_90a), plain C interface for ctypes.
+// SSIM reduction for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel pnnp_tpu/kernels/ssim.py::_kernel (launched
 // by _ssim_call). It computes the same function, not the same blocks: the sum
@@ -12,16 +12,10 @@
 // Bound: the kernel is memory-bound. Reading x and y once is
 // 2 * 1424 * 8512 * 4 B ~ 97 MB for a Sony frame, about 29 us at the H100
 // SXM's 3.35 TB/s, against roughly 1 GFLOP of fp32 work (about 15 us at
-// 67 TFLOP/s).
-//
-// Two routes compute the same function:
-//
-// * generic (ssim_tile_kernel, any 1 <= C <= 16): each block stages one
-//   (TH+6) x (TL+6C) halo tile of x and y in shared memory with coalesced
-//   loads, forms the five moments and their vertical 7-row sums there, takes
-//   the 7-tap horizontal sums from shared memory, and writes one partial per
-//   block. Its floor is shared-memory traffic (~200 B per window) and its
-//   load and compute phases do not overlap.
+// 67 TFLOP/s); 291 MB, about 87 us, for rgb_quality's sRGB Sony frame
+// [2848, 4256, 3] (about 50 us of fp32 work). Both routes read each input
+// byte from device memory about once: a warp streams rows through a ring in
+// shared memory and keeps the window sums in registers.
 //
 // * hopper (ssim_strip_kernel, C == 4 with 16-byte aligned rows: the eval
 //   path's full frames): one pixel is one float4. A warp walks a strip of
@@ -41,6 +35,31 @@
 //   down, odd strips up, so that two strips read their shared 6 halo rows at
 //   about the same time and the second read comes from L2.
 //
+// * generic (ssim_generic_kernel<C>, any 1 <= C <= 16: rgb_quality's sRGB
+//   frames at C = 3, and the C = 4 frames hopper does not take): the same
+//   design as a template on C (struct Gen), the host switching over C so that
+//   the channel loops unroll. A lane owns P consecutive pixels of C channels,
+//   P = 4 up to C = 4, 2 up to C = 8, 1 above, so that its P*C <= 16 floats of
+//   each running sum stay in registers. A window reaches D = ceil(6 / P)
+//   lanes to the right; the last D lanes of a warp are halo only, and a warp
+//   outputs OUT <= (32 - D) P of its 32 P pixels (120 at C <= 4), OUT chosen
+//   so that every warp column starts on a 16-byte boundary. Rows come in by
+//   cp.async two rows ahead into a 9-row ring per warp: 16-byte copies
+//   (cp.async.cg) when the row length and the data are 16-byte aligned, as
+//   the sRGB frames are, else 4-byte copies (cp.async.ca: odd W*C, unaligned
+//   views), zero past the right edge by the copy's source size. A lane reads
+//   its own P*C floats as float4 where P*C % 4 == 0 (XOR-swizzled where
+//   their stride in float4 is even), else as float2 or float: every stride is
+//   then odd and the reads are free of bank conflicts. Four running sums,
+//   reseeded every 8 rows, as hopper. Horizontal sums: per-channel suffix
+//   sums of the lane's own pixels plus the prefix sums of the next D lanes by
+//   __shfl_down_sync (4 shuffles per running sum and channel at P = 4 and 2,
+//   6 at P = 1). The 1/n and N/(N-1) factors are folded into constants, the
+//   division is rcp.approx (b1 b2 >= c1 c2 > 0), invalid windows are masked
+//   by a multiply. Blocks of 2 warps, as many per SM as the rings allow (4 at
+//   C = 3, at most 8), the strip height the shortest (not under 16 rows) that
+//   keeps every warp resident in one wave; strips alternate direction.
+//
 // Determinism: no float atomics. Each block reduces in a fixed order (warp
 // shuffles, then warps in order) and a second one-block pass sums the
 // partials in a fixed order in double, so the metric is bit-identical from
@@ -48,130 +67,15 @@
 
 #include <cuda_runtime.h>
 
+#include <array>
 #include <mutex>
+#include <utility>
 
 namespace {
 
 constexpr int WIN = 7;
-
-// ---- generic route ---------------------------------------------------------
-
-constexpr int TH = 16;                      // output rows per block
-constexpr int TL = 128;                     // output lanes per block
-constexpr int THREADS = 256;
-constexpr int ROW_SPLIT = THREADS / TL;     // row halves per lane column
-constexpr int ROWS_PER_THREAD = TH / ROW_SPLIT;
 constexpr int FINAL_THREADS = 1024;
 constexpr int MAX_C = 16;
-
-static_assert(THREADS % TL == 0 && TH % ROW_SPLIT == 0, "tile shape");
-
-__host__ __device__ inline int tile_cols(int C) { return TL + (WIN - 1) * C; }
-
-inline size_t smem_bytes(int C) {
-  const size_t cols = tile_cols(C);
-  // x and y halo tiles + five planes of vertical sums
-  return sizeof(float) * (2 * (TH + WIN - 1) * cols + 5 * TH * cols);
-}
-
-__global__ void __launch_bounds__(THREADS)
-ssim_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 int H, int L, int C, int Hv, int Lv, float c1, float c2,
-                 double* __restrict__ partials) {
-  extern __shared__ float smem[];
-  const int cols = tile_cols(C);
-  const int rows = TH + WIN - 1;
-  float* sx = smem;                 // [rows][cols]
-  float* sy = sx + rows * cols;     // [rows][cols]
-  float* sv = sy + rows * cols;     // [5][TH][cols]
-  const int plane = TH * cols;
-
-  const int r0 = blockIdx.y * TH;
-  const int l0 = blockIdx.x * TL;
-  const int tid = threadIdx.x;
-
-  // 1. Stage the halo tile: consecutive threads read consecutive lanes of a
-  //    row. Past the frame edge the tile is zero; those cells only feed
-  //    outputs that the mask below drops.
-  for (int e = tid; e < rows * cols; e += THREADS) {
-    const int i = e / cols, j = e - i * cols;
-    const int r = r0 + i, l = l0 + j;
-    const bool in = (r < H) && (l < L);
-    const size_t off = (size_t)r * L + l;
-    sx[e] = in ? x[off] : 0.f;
-    sy[e] = in ? y[off] : 0.f;
-  }
-  __syncthreads();
-
-  // 2. Vertical pass: for each lane column, a sliding 7-row sum of the five
-  //    moments x, y, x^2, y^2, xy. Each column's TH output rows are split
-  //    into ROW_SPLIT runs so that all threads have work.
-  for (int w = tid; w < ROW_SPLIT * cols; w += THREADS) {
-    const int half = w / cols, j = w - half * cols;
-    const int i0 = half * ROWS_PER_THREAD;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
-#pragma unroll
-    for (int k = 0; k < WIN; ++k) {
-      const float a = sx[(i0 + k) * cols + j], b = sy[(i0 + k) * cols + j];
-      s0 += a; s1 += b; s2 += a * a; s3 += b * b; s4 += a * b;
-    }
-    for (int i = i0; i < i0 + ROWS_PER_THREAD; ++i) {
-      if (i > i0) {  // slide: add row i+6, drop row i-1
-        const float a = sx[(i + WIN - 1) * cols + j];
-        const float b = sy[(i + WIN - 1) * cols + j];
-        const float p = sx[(i - 1) * cols + j], q = sy[(i - 1) * cols + j];
-        s0 += a - p; s1 += b - q;
-        s2 += a * a - p * p; s3 += b * b - q * q; s4 += a * b - p * q;
-      }
-      const int o = i * cols + j;
-      sv[o] = s0; sv[plane + o] = s1; sv[2 * plane + o] = s2;
-      sv[3 * plane + o] = s3; sv[4 * plane + o] = s4;
-    }
-  }
-  __syncthreads();
-
-  // 3. Horizontal 7-tap sums at a stride of C lanes, the SSIM map in
-  //    registers, masked to valid windows, summed per thread.
-  const float n = (float)(WIN * WIN);
-  const float cov_norm = n / (n - 1.f);
-  const int j = tid % TL;
-  const int i0 = (tid / TL) * ROWS_PER_THREAD;
-  float acc = 0.f;
-  if (l0 + j < Lv) {
-    for (int i = i0; i < i0 + ROWS_PER_THREAD && r0 + i < Hv; ++i) {
-      float h[5];
-#pragma unroll
-      for (int m = 0; m < 5; ++m) {
-        const float* row = sv + m * plane + i * cols + j;
-        float t = 0.f;
-#pragma unroll
-        for (int k = 0; k < WIN; ++k) t += row[k * C];
-        h[m] = t;
-      }
-      const float ux = h[0] / n, uy = h[1] / n;
-      const float uxx = h[2] / n, uyy = h[3] / n, uxy = h[4] / n;
-      const float vx = cov_norm * (uxx - ux * ux);
-      const float vy = cov_norm * (uyy - uy * uy);
-      const float vxy = cov_norm * (uxy - ux * uy);
-      const float a1 = 2.f * ux * uy + c1, a2 = 2.f * vxy + c2;
-      const float b1 = ux * ux + uy * uy + c1, b2 = vx + vy + c2;
-      acc += (a1 * a2) / (b1 * b2);
-    }
-  }
-
-  // 4. Block reduction in a fixed order: warp shuffles, then warps in order.
-  double v = (double)acc;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  __shared__ double warp_sums[THREADS / 32];
-  if ((tid & 31) == 0) warp_sums[tid >> 5] = v;
-  __syncthreads();
-  if (tid == 0) {
-    double t = 0.0;
-    for (int wi = 0; wi < THREADS / 32; ++wi) t += warp_sums[wi];
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = t;
-  }
-}
 
 __global__ void __launch_bounds__(FINAL_THREADS)
 ssim_final_kernel(const double* __restrict__ partials, int n, double* __restrict__ out) {
@@ -185,11 +89,6 @@ ssim_final_kernel(const double* __restrict__ partials, int n, double* __restrict
     __syncthreads();
   }
   if (threadIdx.x == 0) out[0] = buf[0];
-}
-
-dim3 tile_grid(int H, int L, int C) {
-  const int Hv = H - (WIN - 1), Lv = (L / C - (WIN - 1)) * C;
-  return dim3((Lv + TL - 1) / TL, (Hv + TH - 1) / TH);
 }
 
 // ---- hopper route --------------------------------------------------------
@@ -217,21 +116,22 @@ struct Strips {
   int rows, n_strips, n_cols;  // output rows per strip, strips, warp columns
 };
 
-// The grid is a pure function of the frame: the strip height is the
+// A route's grid is a pure function of the frame: the strip height is the
 // shortest (not under MIN_STRIP) that keeps every warp resident in one wave.
-Strips strips(int H, int L) {
-  const int Hv = H - (WIN - 1), Wv = L / HC - (WIN - 1);
-  const int n_cols = (Wv + WARP_OUT - 1) / WARP_OUT;
-  const int want = WARP_SLOTS / n_cols > 1 ? WARP_SLOTS / n_cols : 1;
+Strips plan_strips(int Hv, int Wv, int warp_out, int warp_slots) {
+  const int n_cols = (Wv + warp_out - 1) / warp_out;
+  const int want = warp_slots / n_cols > 1 ? warp_slots / n_cols : 1;
   int rows = (Hv + want - 1) / want;
   if (rows < MIN_STRIP) rows = MIN_STRIP;
   return {rows, (Hv + rows - 1) / rows, n_cols};
 }
 
-int strip_blocks(int H, int L) {
-  const Strips s = strips(H, L);
-  return (s.n_strips * s.n_cols + S_WARPS - 1) / S_WARPS;
+Strips strips(int H, int L) {
+  return plan_strips(H - (WIN - 1), L / HC - (WIN - 1), WARP_OUT, WARP_SLOTS);
 }
+
+// Blocks of S_WARPS warps, one warp per strip and warp column, one partial each.
+int strip_blocks(const Strips& s) { return (s.n_strips * s.n_cols + S_WARPS - 1) / S_WARPS; }
 
 // A warp's ring holds rows of its chunk, [slot][x|y][CHUNK] float4, pixel p
 // at swz(p). The copies in (8 lanes on 8 consecutive pixels) and each lane's
@@ -444,23 +344,318 @@ ssim_strip_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
   }
 }
 
+// ---- generic route -------------------------------------------------------
+
+constexpr int SMS = 132;                  // H100 SXM
+constexpr int SMEM_PER_SM = 233472;       // 228 KB of shared memory per SM
+constexpr int SMEM_RESERVED = 1024;       // the runtime's share of each block
+constexpr int G_MAX_BLOCKS_PER_SM = 8;
+
+// The generic route's shape for C channels, all at compile time.
+template <int C>
+struct Gen {
+  static constexpr int P = C <= 4 ? 4 : C <= 8 ? 2 : 1;  // pixels per lane
+  static constexpr int PC = P * C;                        // floats per lane, row and array
+  static constexpr int D = (P + WIN - 2) / P;             // lanes a window reaches: ceil(6 / P)
+  static constexpr int CF = 32 * PC;                      // floats per warp, row and array
+  // Output pixels per warp: at most (32 - D) P, a multiple of ALIGN so that
+  // each warp column's first float is 16-byte aligned in a 16-byte aligned row.
+  static constexpr int ALIGN = C % 4 == 0 ? 1 : C % 2 == 0 ? 2 : 4;
+  static constexpr int OUT = (32 - D) * P / ALIGN * ALIGN;
+  static constexpr int V = PC % 4 == 0 ? 4 : PC % 2 == 0 ? 2 : 1;  // floats per shared read
+  static constexpr bool SWZ = V == 4 && (PC / 4) % 2 == 0;
+  static constexpr int AHEAD = 2;                         // rows in flight
+  static constexpr int SLOTS = WIN + AHEAD;               // ring rows
+  static constexpr int SMEM = (int)sizeof(float) * SLOTS * 2 * CF * S_WARPS;  // per block
+  static constexpr int FIT =
+      SMEM_PER_SM / (SMEM + SMEM_RESERVED + (int)sizeof(double) * S_WARPS);
+  static constexpr int BLOCKS_PER_SM = FIT < G_MAX_BLOCKS_PER_SM ? FIT : G_MAX_BLOCKS_PER_SM;
+  static constexpr int WARP_SLOTS = SMS * BLOCKS_PER_SM * S_WARPS;
+
+  static_assert(PC <= 16 && OUT + WIN - 1 <= 32 * P && OUT * C % 4 == 0, "lane shape");
+
+  // Ring position of float4 v of a row: an XOR within each aligned group of
+  // 8 when the lanes' float4 stride is even (2 or 4), else none.
+  static __device__ __forceinline__ int swz(int v) { return SWZ ? v ^ ((v >> 3) & 7) : v; }
+};
+
+// Start copying one row of the warp's chunk (row offset `off` plus the
+// chunk's first float, `left` floats to the row's end) into ring slot `slot`.
+// 16-byte copies: float4 lane + 32 i, each instruction of the warp on 512
+// contiguous bytes; else 4-byte copies, float lane + 32 i. Zero past the
+// row's end (those pixels only feed masked windows).
+template <int C>
+__device__ __forceinline__ void gen_fetch(float* ring, int slot, const float* __restrict__ x,
+                                          const float* __restrict__ y, size_t off, int left,
+                                          bool vec16, int lane) {
+  using G = Gen<C>;
+  float* dx = ring + (2 * slot) * G::CF;
+  float* dy = dx + G::CF;
+  if (vec16) {
+    constexpr int NV = G::CF / 4;
+#pragma unroll
+    for (int i = 0; i < (NV + 31) / 32; ++i) {
+      const int v = lane + 32 * i;
+      if (NV % 32 == 0 || v < NV) {
+        const bool in = 4 * v < left;
+        const size_t g = in ? off + 4 * v : 0;
+        const unsigned sx = (unsigned)__cvta_generic_to_shared(dx + 4 * G::swz(v));
+        const unsigned sy = (unsigned)__cvta_generic_to_shared(dy + 4 * G::swz(v));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sx), "l"(x + g),
+                     "r"(in ? 16 : 0));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sy), "l"(y + g),
+                     "r"(in ? 16 : 0));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < G::PC; ++i) {
+      const int f = lane + 32 * i;
+      const bool in = f < left;
+      const size_t g = in ? off + f : 0;
+      const int q = 4 * G::swz(f >> 2) + (f & 3);
+      const unsigned sx = (unsigned)__cvta_generic_to_shared(dx + q);
+      const unsigned sy = (unsigned)__cvta_generic_to_shared(dy + q);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sx), "l"(x + g),
+                   "r"(in ? 4 : 0));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sy), "l"(y + g),
+                   "r"(in ? 4 : 0));
+    }
+  }
+}
+
+// This lane's P pixels of one row, pixel j channel c at [j * C + c].
+template <int C>
+struct GRow {
+  float x[Gen<C>::PC], y[Gen<C>::PC];
+};
+
+template <int C>
+__device__ __forceinline__ void gen_get(const float* ring, int slot, GRow<C>& r, int lane) {
+  using G = Gen<C>;
+  const float* sx = ring + (2 * slot) * G::CF;
+  const float* sy = sx + G::CF;
+  if constexpr (G::V == 4) {
+#pragma unroll
+    for (int t = 0; t < G::PC / 4; ++t) {
+      const int q = 4 * G::swz(lane * (G::PC / 4) + t);
+      const float4 a = *reinterpret_cast<const float4*>(sx + q);
+      const float4 b = *reinterpret_cast<const float4*>(sy + q);
+      r.x[4 * t] = a.x; r.x[4 * t + 1] = a.y; r.x[4 * t + 2] = a.z; r.x[4 * t + 3] = a.w;
+      r.y[4 * t] = b.x; r.y[4 * t + 1] = b.y; r.y[4 * t + 2] = b.z; r.y[4 * t + 3] = b.w;
+    }
+  } else if constexpr (G::V == 2) {
+#pragma unroll
+    for (int t = 0; t < G::PC / 2; ++t) {
+      const int q = 2 * (lane * (G::PC / 2) + t);
+      const float2 a = *reinterpret_cast<const float2*>(sx + q);
+      const float2 b = *reinterpret_cast<const float2*>(sy + q);
+      r.x[2 * t] = a.x; r.x[2 * t + 1] = a.y;
+      r.y[2 * t] = b.x; r.y[2 * t + 1] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < G::PC; ++t) {
+      r.x[t] = sx[lane * G::PC + t];
+      r.y[t] = sy[lane * G::PC + t];
+    }
+  }
+}
+
+// Whether the horizontal pass needs prefix sum i of lane + d (P pixels a
+// lane): some output pixel j's window j .. j+6 ends at pixel i of that lane
+// (or covers it whole, i = P-1).
+template <int P>
+__host__ __device__ constexpr bool gen_needs(int d, int i) {
+  for (int j = 0; j < P; ++j) {
+    const int e = j + WIN - 1 - d * P;
+    if (e >= 0 && (e < P - 1 ? e : P - 1) == i) return true;
+  }
+  return false;
+}
+
+// The SSIM map of this row's windows over this lane's pixels (mask 1 or 0
+// drops the invalid ones), from the vertical sums s; the formula is
+// ssim_row's.
+template <int C>
+__device__ __forceinline__ float gen_row(const float (&s)[NM][Gen<C>::PC],
+                                         const float (&mask)[Gen<C>::P], float c1, float c2) {
+  using G = Gen<C>;
+  constexpr int P = G::P, D = G::D;
+  const float n = (float)(WIN * WIN), cn = n / (n - 1.f);
+  const float k_a1 = 2.f / (n * n), k_b1 = 1.f / (n * n);
+  const float k_a2 = 2.f * cn / n, k_a2q = -2.f * cn / (n * n);
+  const float k_b2 = cn / n, k_b2q = -cn / (n * n);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    // Output pixel j of this lane covers its own pixels j .. P-1 (suffix
+    // sums) and, for d = 1 .. D, pixels 0 .. j+6-dP of lane + d (that lane's
+    // prefix sums, by shuffles; the whole lane where j+6-dP >= P-1).
+    float h[NM][P];
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      float pre[P], suf[P];
+      pre[0] = s[m][c];
+#pragma unroll
+      for (int j = 1; j < P; ++j) pre[j] = pre[j - 1] + s[m][j * C + c];
+      suf[P - 1] = s[m][(P - 1) * C + c];
+#pragma unroll
+      for (int j = P - 2; j >= 0; --j) suf[j] = s[m][j * C + c] + suf[j + 1];
+      float nb[D + 1][P];
+#pragma unroll
+      for (int d = 1; d <= D; ++d)
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+          nb[d][i] = gen_needs<P>(d, i) ? __shfl_down_sync(0xffffffffu, pre[i], d) : 0.f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        float t = suf[j];
+#pragma unroll
+        for (int d = 1; d <= D; ++d) {
+          const int e = j + WIN - 1 - d * P;
+          if (e >= 0) t += nb[d][e < P - 1 ? e : P - 1];
+        }
+        h[m][j] = t;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float sx = h[0][j], sy = h[1][j], sq = h[2][j], sxy = h[3][j];
+      const float A = sx * sy, Q = fmaf(sx, sx, sy * sy);
+      const float a1 = fmaf(A, k_a1, c1), b1 = fmaf(Q, k_b1, c1);
+      const float a2 = fmaf(sxy, k_a2, fmaf(A, k_a2q, c2));
+      const float b2 = fmaf(sq, k_b2, fmaf(Q, k_b2q, c2));
+      acc = fmaf((a1 * a2) * rcp_approx(b1 * b2), mask[j], acc);
+    }
+  }
+  return acc;
+}
+
+// One warp walks one strip of one warp column, S_WARPS warps per block in
+// grid order; one partial per block. `vec16`: 16-byte copies (L % 4 == 0 and
+// x, y 16-byte aligned), uniform over the grid.
+template <int C>
+__global__ void __launch_bounds__(S_THREADS, Gen<C>::BLOCKS_PER_SM)
+ssim_generic_kernel(const float* __restrict__ x, const float* __restrict__ y, int L, int Hv,
+                    int Wv, Strips st, bool vec16, float c1, float c2,
+                    double* __restrict__ partials) {
+  using G = Gen<C>;
+  constexpr int P = G::P, PC = G::PC, SLOTS = G::SLOTS, AHEAD = G::AHEAD;
+  extern __shared__ float4 rings[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* ring = reinterpret_cast<float*>(rings) + warp * SLOTS * 2 * G::CF;
+  const int g = blockIdx.x * S_WARPS + warp;
+  double acc = 0.0;
+  if (g < st.n_strips * st.n_cols) {  // uniform across the warp
+    const int strip = g / st.n_cols, col = g - strip * st.n_cols;
+    const int o0 = strip * st.rows;
+    const int n_in = min(st.rows, Hv - o0) + (WIN - 1);  // input rows o0 .. o0+n_in-1
+    // Even strips walk down, odd strips up, as in ssim_strip_kernel.
+    const bool up = strip & 1;
+    const int r0 = up ? o0 + n_in - 1 : o0, dr = up ? -1 : 1;
+    const int col0 = col * G::OUT;
+    const size_t f0 = (size_t)col0 * C;
+    const int left = L - (int)f0;
+    float mask[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      mask[j] = lane * P + j < G::OUT && col0 + lane * P + j < Wv ? 1.f : 0.f;
+    float s[NM][PC];
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+#pragma unroll
+      for (int e = 0; e < PC; ++e) s[m][e] = 0.f;
+
+    // Step k takes input row k of the strip (ring slot k % SLOTS) into the
+    // window; rows k+1 .. k+AHEAD are in flight meanwhile. Every step commits
+    // one copy group (empty past the strip's end), so "all but the newest
+    // AHEAD-1 groups done" always means "row k is in".
+#pragma unroll
+    for (int a = 0; a < AHEAD; ++a) {
+      gen_fetch<C>(ring, a, x, y, (size_t)(r0 + a * dr) * L + f0, left, vec16, lane);
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    for (int k = 0; k < n_in; ++k) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD - 1));
+      __syncwarp();  // row k is in, from every lane's copies
+      const bool seed = k >= WIN - 1 && (k - (WIN - 1)) % RESEED == 0;
+      const bool slide = k >= WIN && !seed;
+      GRow<C> cur, old;
+      if (slide) {  // add row k, drop row k-7
+        gen_get<C>(ring, k % SLOTS, cur, lane);
+        gen_get<C>(ring, (k - WIN) % SLOTS, old, lane);
+      }
+      if (seed) {  // fresh sums over rows k-6..k, oldest first
+#pragma unroll
+        for (int m = 0; m < NM; ++m)
+#pragma unroll
+          for (int e = 0; e < PC; ++e) s[m][e] = 0.f;
+#pragma unroll 1
+        for (int t = k - (WIN - 1); t <= k; ++t) {
+          GRow<C> r;
+          gen_get<C>(ring, t % SLOTS, r, lane);
+#pragma unroll
+          for (int e = 0; e < PC; ++e) {
+            const float a = r.x[e], b = r.y[e];
+            s[0][e] += a;
+            s[1][e] += b;
+            s[2][e] = fmaf(b, b, fmaf(a, a, s[2][e]));
+            s[3][e] = fmaf(a, b, s[3][e]);
+          }
+        }
+      }
+      __syncwarp();  // every lane has read row k-7 before its slot is refilled
+      if (k + AHEAD < n_in)
+        gen_fetch<C>(ring, (k + AHEAD) % SLOTS, x, y, (size_t)(r0 + (k + AHEAD) * dr) * L + f0,
+                     left, vec16, lane);
+      asm volatile("cp.async.commit_group;\n" ::);
+      if (slide) {
+#pragma unroll
+        for (int e = 0; e < PC; ++e) {
+          const float a = cur.x[e], b = cur.y[e];
+          const float p = old.x[e], q = old.y[e];
+          s[0][e] = (s[0][e] + a) - p;
+          s[1][e] = (s[1][e] + b) - q;
+          s[2][e] = fmaf(-q, q, fmaf(-p, p, fmaf(b, b, fmaf(a, a, s[2][e]))));
+          s[3][e] = fmaf(-p, q, fmaf(a, b, s[3][e]));
+        }
+      }
+      if (k >= WIN - 1) acc += (double)gen_row<C>(s, mask, c1, c2);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  }
+
+  // Block reduction in a fixed order: warp shuffles, then warps in order.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  __shared__ double warp_sums[S_WARPS];
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t = 0.0;
+    for (int wi = 0; wi < S_WARPS; ++wi) t += warp_sums[wi];
+    partials[blockIdx.x] = t;
+  }
+}
+
 // ---- host side -------------------------------------------------------------
 
 enum Route { GENERIC = 0, HOPPER = 1 };
 constexpr int MAX_DEVICES = 64;
 std::mutex attr_mutex;
-bool attr_set[2][MAX_DEVICES];
+bool attr_set[MAX_C + 1][MAX_DEVICES];  // [0] hopper, [C] generic at C
 
 // Raise a kernel's dynamic shared-memory limit once per device and process
 // (cudaFuncSetAttribute acts on the current device), not on every launch.
-cudaError_t allow_smem(int route, const void* fn, size_t bytes) {
+cudaError_t allow_smem(int kernel, const void* fn, size_t bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(attr_mutex);
-  if (dev < MAX_DEVICES && attr_set[route][dev]) return cudaSuccess;
+  if (dev < MAX_DEVICES && attr_set[kernel][dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess && dev < MAX_DEVICES) attr_set[route][dev] = true;
+  if (err == cudaSuccess && dev < MAX_DEVICES) attr_set[kernel][dev] = true;
   return err;
 }
 
@@ -469,20 +664,81 @@ bool hopper_takes(const float* x, const float* y, int L, int C) {
          (reinterpret_cast<size_t>(y) % 16) == 0;
 }
 
+template <int C>
+Strips gen_strips(int H, int L) {
+  return plan_strips(H - (WIN - 1), L / C - (WIN - 1), Gen<C>::OUT, Gen<C>::WARP_SLOTS);
+}
+
+template <int C>
+int gen_partials(int H, int L) { return strip_blocks(gen_strips<C>(H, L)); }
+
+template <int C>
+int gen_launch(const float* x, const float* y, int H, int L, float c1, float c2,
+               double* partials, cudaStream_t s) {
+  const cudaError_t err =
+      allow_smem(C, (const void*)ssim_generic_kernel<C>, Gen<C>::SMEM);
+  if (err != cudaSuccess) return -(int)err;
+  const Strips st = gen_strips<C>(H, L);
+  const int n = strip_blocks(st);
+  const bool vec16 = L % 4 == 0 && (reinterpret_cast<size_t>(x) % 16) == 0 &&
+                     (reinterpret_cast<size_t>(y) % 16) == 0;
+  ssim_generic_kernel<C><<<n, S_THREADS, Gen<C>::SMEM, s>>>(
+      x, y, L, H - (WIN - 1), L / C - (WIN - 1), st, vec16, c1, c2, partials);
+  return n;
+}
+
+// Blocks of a kernel that the runtime keeps resident on one SM of the
+// current device, at `smem` dynamic bytes; -1 on an error.
+int resident_blocks(int kernel, const void* fn, size_t smem) {
+  int n = 0;
+  if (allow_smem(kernel, fn, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, S_THREADS, smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int C>
+int gen_occupancy() {
+  return resident_blocks(C, (const void*)ssim_generic_kernel<C>, Gen<C>::SMEM);
+}
+
+// The generic route's entries, indexed by C - 1: the host's switch over C.
+struct GenEntry {
+  int (*partials)(int, int);
+  int (*launch)(const float*, const float*, int, int, float, float, double*, cudaStream_t);
+  int (*occupancy)();
+};
+
+template <int... Cs>
+constexpr std::array<GenEntry, MAX_C> gen_table(std::integer_sequence<int, Cs...>) {
+  return {{GenEntry{gen_partials<Cs + 1>, gen_launch<Cs + 1>, gen_occupancy<Cs + 1>}...}};
+}
+
+constexpr std::array<GenEntry, MAX_C> GEN = gen_table(std::make_integer_sequence<int, MAX_C>{});
+
 }  // namespace
 
 extern "C" {
 
 // Number of per-block partials pnnp_ssim_sum writes for an [H, L] frame on
-// `route` (0 generic, 1 hopper).
+// `route` (0 generic, 1 hopper); 0 for a C the route does not take.
 int pnnp_ssim_num_partials(int H, int L, int C, int route) {
-  if (route == HOPPER) return strip_blocks(H, L);
-  const dim3 g = tile_grid(H, L, C);
-  return (int)(g.x * g.y);
+  if (route == HOPPER) return strip_blocks(strips(H, L));
+  if (route == GENERIC && 1 <= C && C <= MAX_C) return GEN[C - 1].partials(H, L);
+  return 0;
 }
 
 // Output rows per strip of the hopper route for an [H, L] frame, C = 4.
 int pnnp_ssim_strip_rows(int H, int L) { return strips(H, L).rows; }
+
+// Blocks of a route's kernel at C that the runtime keeps resident on one SM
+// of the current device (the grid plans for 3 hopper blocks and
+// Gen<C>::BLOCKS_PER_SM generic ones); -1 on an error or a C out of range.
+int pnnp_ssim_blocks_per_sm(int C, int route) {
+  if (route == GENERIC && 1 <= C && C <= MAX_C) return GEN[C - 1].occupancy();
+  if (route == HOPPER) return resident_blocks(0, (const void*)ssim_strip_kernel, ring_bytes());
+  return -1;
+}
 
 // Sum of the SSIM map over all valid windows into out[0] (double), on
 // `stream`, by `route` (0 generic, 1 hopper). `partials` holds
@@ -494,26 +750,19 @@ int pnnp_ssim_sum(const float* x, const float* y, int H, int L, int C,
                   float c1, float c2, int route, double* partials, double* out,
                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int Hv = H - (WIN - 1);
   int n_partials = 0;
-  cudaError_t err;
   if (route == HOPPER) {
     if (!hopper_takes(x, y, L, C)) return (int)cudaErrorInvalidValue;
-    err = allow_smem(HOPPER, (const void*)ssim_strip_kernel, ring_bytes());
+    const cudaError_t err = allow_smem(0, (const void*)ssim_strip_kernel, ring_bytes());
     if (err != cudaSuccess) return (int)err;
     const Strips st = strips(H, L);
-    n_partials = strip_blocks(H, L);
+    n_partials = strip_blocks(st);
     ssim_strip_kernel<<<n_partials, S_THREADS, ring_bytes(), s>>>(
         reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(y),
-        L / HC, Hv, L / HC - (WIN - 1), st, c1, c2, partials);
-  } else if (route == GENERIC) {
-    err = allow_smem(GENERIC, (const void*)ssim_tile_kernel, smem_bytes(MAX_C));
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid = tile_grid(H, L, C);
-    const int Lv = (L / C - (WIN - 1)) * C;
-    ssim_tile_kernel<<<grid, THREADS, smem_bytes(C), s>>>(x, y, H, L, C, Hv, Lv, c1,
-                                                          c2, partials);
-    n_partials = (int)(grid.x * grid.y);
+        L / HC, H - (WIN - 1), L / HC - (WIN - 1), st, c1, c2, partials);
+  } else if (route == GENERIC && 1 <= C && C <= MAX_C) {
+    n_partials = GEN[C - 1].launch(x, y, H, L, c1, c2, partials, s);
+    if (n_partials < 0) return -n_partials;  // the shared-memory attribute's error
   } else {
     return (int)cudaErrorInvalidValue;
   }

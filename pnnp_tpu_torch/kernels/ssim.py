@@ -1,17 +1,25 @@
-"""Tiled-reduction SSIM: the eval metric's hot op, as a CUDA kernel.
+"""SSIM reduction: the eval metric's hot op, as a CUDA kernel.
 
 Counterpart of ``pnnp_tpu/kernels/ssim.py``. The kernel
 (``pnnp_tpu_torch/csrc/ssim.cu``) reads a pair of channel-interleaved flat
 frames ``[H, W*C]`` once, forms the window moments and the separable 7x7 box,
 evaluates the SSIM map and reduces it to one sum in a fixed order
 (bit-identical from run to run). It is built with ``nvcc`` at first use and
-bound through ``ctypes``.
+bound through ``ctypes``. It is bound by the bytes it reads: 2 x 4 B a lane
+of x and y at 3.35 TB/s, 28.9 us for the raw Sony frame ``[1424, 8512]``,
+86.8 us for ``rgb_quality``'s sRGB one ``[2848, 12768]``.
 
 Two routes compute the same function (:func:`_route` picks one from the
-shape and the data's alignment): ``hopper`` streams row strips through a shared-memory ring
-with coalesced 16-byte copies and keeps the window sums in registers, for
-C = 4 (the eval path's frames); ``generic`` stages halo tiles in shared
-memory, for any 1 <= C <= 16.
+shape and the data's alignment), with one design: a warp walks a strip of
+output rows over a chunk of pixel columns, rows stream through a small
+shared-memory ring by ``cp.async`` a couple of rows ahead, four running
+7-row sums stay in registers (reseeded every 8 rows) and the 7-tap
+horizontal sums come from the next lanes by warp shuffles. ``hopper`` takes
+C = 4 with 16-byte aligned data (the eval path's frames), a pixel being one
+``float4``. ``generic`` takes any 1 <= C <= 16 (``rgb_quality``'s sRGB
+frames at C = 3): a template on C whose lanes own P = 4, 2 or 1 pixels
+(:func:`generic_grid` mirrors its grid), with 16-byte copies where the row
+length and the data are 16-byte aligned and 4-byte copies elsewhere.
 
 Device rule for every entry point: a CPU tensor goes through the plain-torch
 version (:mod:`pnnp_tpu_torch.ops.metrics`); a CUDA tensor launches the
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -42,7 +51,7 @@ from pnnp_tpu_torch.ops.metrics import ssim as ssim_plain
 from pnnp_tpu_torch.ops.metrics import ssim_sum as ssim_sum_plain
 
 WIN = 7
-MAX_C = 16  # shared-memory tile width grows with C (csrc/ssim.cu smem_bytes)
+MAX_C = 16  # the generic route's template instances (csrc/ssim.cu MAX_C)
 SOURCE = CSRC_DIR / "ssim.cu"
 ROUTES = ("generic", "hopper")  # the C interface's route numbers, in order
 
@@ -60,6 +69,8 @@ def _library() -> ctypes.CDLL:
     lib.pnnp_ssim_num_partials.restype = ctypes.c_int
     lib.pnnp_ssim_strip_rows.argtypes = [ctypes.c_int] * 2
     lib.pnnp_ssim_strip_rows.restype = ctypes.c_int
+    lib.pnnp_ssim_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.pnnp_ssim_blocks_per_sm.restype = ctypes.c_int
     lib.pnnp_ssim_sum.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -141,6 +152,84 @@ def _hopper_strip_rows(H: int, L: int) -> int:
     """Output rows per strip of the ``hopper`` route for an ``[H, L]`` frame
     (the kernel's own grid rule; needs the built library)."""
     return _library().pnnp_ssim_strip_rows(H, L)
+
+
+def resident_blocks_per_sm(C: int, route: str) -> int:
+    """Blocks of ``route``'s kernel at ``C`` that the runtime keeps resident
+    on one SM of the current device (needs the built library and a card)."""
+    return _library().pnnp_ssim_blocks_per_sm(C, ROUTES.index(route))
+
+
+# The generic route's grid, mirrored from csrc/ssim.cu (struct Gen and
+# plan_strips): the tests hold it to covering every valid window exactly
+# once, chip_smoke.py to the kernel's pnnp_ssim_num_partials.
+SMS = 132  # the H100 SXM's SMs
+SMEM_PER_SM = 233_472  # bytes of shared memory per SM
+SMEM_RESERVED = 1024  # the runtime's share of each block
+S_WARPS = 2  # warps per block
+MAX_BLOCKS_PER_SM = 8
+AHEAD = 2  # rows in flight per warp
+MIN_STRIP = 16  # shortest strip of output rows
+RESEED = 8  # output rows between fresh running sums
+
+
+@dataclass(frozen=True)
+class GenericGrid:
+    """The ``generic`` route's grid for one ``[H, W*C]`` frame: a warp per
+    strip of ``rows`` output rows and warp column of ``warp_out`` pixels;
+    its lanes own ``lane_pixels`` (P) pixels each, the last ``halo_lanes``
+    (D) only feed the windows of the lanes before them."""
+
+    lane_pixels: int
+    halo_lanes: int
+    warp_out: int
+    blocks_per_sm: int
+    Hv: int
+    Wv: int
+    rows: int
+    n_strips: int
+    n_cols: int
+
+    @property
+    def n_partials(self) -> int:
+        """Blocks of S_WARPS warps, one partial each."""
+        return -(-self.n_strips * self.n_cols // S_WARPS)
+
+    def input_rows(self, strip: int) -> range:
+        """The input rows ``strip``'s warps read, in their order: even strips
+        walk down, odd strips up. Step k >= 6 outputs the window of rows
+        k-6..k of the walk."""
+        o0 = strip * self.rows
+        rows = range(o0, o0 + min(self.rows, self.Hv - o0) + WIN - 1)
+        return rows[::-1] if strip % 2 else rows
+
+    def output_pixel(self, col: int, lane: int, j: int) -> int:
+        """The output pixel of pixel ``j`` of ``lane`` in warp column
+        ``col``, or -1 where the kernel's mask drops it."""
+        k = lane * self.lane_pixels + j
+        p = col * self.warp_out + k
+        return p if k < self.warp_out and p < self.Wv else -1
+
+
+def generic_grid(H: int, L: int, C: int) -> GenericGrid:
+    """The ``generic`` route's grid for an ``[H, L]`` frame of ``C``
+    channels: P = 4 pixels a lane up to C = 4, 2 up to C = 8, 1 above; a
+    window reaches D = ceil(6 / P) lanes to the right; a warp outputs the
+    largest multiple of 4 / gcd(C, 4) pixels not over (32 - D) P, so that
+    every warp column starts 16-byte aligned; as many blocks per SM as the
+    rings' shared memory allows; the strip height is the shortest (not under
+    MIN_STRIP) that keeps every warp resident in one wave."""
+    P = 4 if C <= 4 else 2 if C <= 8 else 1
+    D = -(-(WIN - 1) // P)
+    align = 1 if C % 4 == 0 else 2 if C % 2 == 0 else 4
+    out = (32 - D) * P // align * align
+    smem = 4 * (WIN + AHEAD) * 2 * 32 * P * C * S_WARPS
+    blocks = min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED + 8 * S_WARPS))
+    Hv, Wv = H - (WIN - 1), L // C - (WIN - 1)
+    n_cols = -(-Wv // out)
+    want = max(1, SMS * blocks * S_WARPS // n_cols)
+    rows = max(MIN_STRIP, -(-Hv // want))
+    return GenericGrid(P, D, out, blocks, Hv, Wv, rows, -(-Hv // rows), n_cols)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

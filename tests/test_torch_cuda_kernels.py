@@ -10,7 +10,10 @@ Both routes of the SSIM kernel (``hopper`` for C = 4, ``generic`` for any C)
 are held against the plain version at every shape they take. Tolerance: 1e-4
 of the mean SSIM (f32 sums taken in another order); two launches on the same
 inputs are bit-identical (fixed-order reduction); at the full frames the two
-routes agree within 1e-5.
+routes agree within 1e-5. The ``generic`` route's edges: C = 1, 2, 3, 5, 8
+and 16, rows of ``W*C % 4 != 0`` lanes (its 4-byte copies), an unaligned
+C = 4 view, its strip and warp-column edges at C = 3, a C = 3 drift frame
+and both sRGB frames of ``rgb_quality``.
 """
 
 import numpy as np
@@ -31,7 +34,19 @@ SHAPES = [(7, 7, 4), (70, 96, 4), (71, 96, 4), (96, 131, 3), (201, 140, 4), SONY
           # widths that end one pixel into a warp's 6-pixel halo (121) and
           # one output pixel into the next warp (127)
           (STRIP + 6, 121, 4), (STRIP + 7, 127, 4), (2 * STRIP + 5, 126, 4)]
+# The generic route (csrc/ssim.cu Gen<C>): every lane shape P = 4, 2, 1; rows
+# of W*C % 4 != 0 lanes (4-byte copies) beside 16-byte aligned ones, three
+# or more warp columns with a ragged end; at C = 3 (P = 4, 120 output pixels
+# a warp, as C = 4) the strip edges and widths one pixel into a warp's halo,
+# two output pixels into the next warp and one (4-byte copies there); and
+# rgb_quality's sRGB frames.
+SRGB_SONY, SRGB_IMX686 = (2848, 4256, 3), (3472, 4624, 3)
+GENERIC_SHAPES = [(70, 252, 1), (71, 97, 1), (70, 130, 2), (37, 97, 2),
+                  (40, 132, 5), (40, 77, 5), (40, 130, 8), (30, 64, 16), (29, 61, 16),
+                  (STRIP + 6, 121, 3), (STRIP + 7, 128, 3), (2 * STRIP + 5, 127, 3),
+                  SRGB_SONY, SRGB_IMX686]
 DRIFT = (1424, 256, 4)
+DRIFT3 = (1424, 4256, 3)  # strips of 49 rows on the generic route
 
 
 def structured(shape, seed):
@@ -128,6 +143,44 @@ def test_ssim_kernel_matches_plain(card, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", GENERIC_SHAPES)
+def test_ssim_generic_route_matches_plain(card, shape):
+    """The generic route at its edges, through the default route of the
+    entry points (C != 4: generic) and against the grid's mirror."""
+    x, y = structured(shape, 1)
+    H, W, C = shape
+    xf, yf = _flat((x, y), card)
+    ref = float(K.ssim_flat_plain(xf, yf, C))
+    n = (H - 6) * (W - 6) * C
+    assert abs(_route_sum(xf, yf, C, "generic") / n - ref) < TOL
+    assert abs(float(K.ssim_flat(xf, yf, C)) - ref) < TOL
+    assert (K._library().pnnp_ssim_num_partials(H, W * C, C, 0)
+            == K.generic_grid(H, W * C, C).n_partials)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 4])
+def test_ssim_generic_takes_unaligned_views(card, C):
+    """A view 4 bytes off 16-byte alignment takes the 4-byte copies (and at
+    C = 4 the generic route, as _route says) and agrees with the aligned
+    frame's launch."""
+    H, W = 37, 131
+    x, y = structured((H, W, C), 5)
+    xf, yf = _flat((x, y), card)
+    views = []
+    for t in (xf, yf):
+        buf = torch.zeros(t.numel() + 1, device=card)
+        buf[1:] = t.reshape(-1)
+        views.append(buf[1:].view(H, W * C))
+    assert K._route(H, W * C, C, views[0].data_ptr(), views[1].data_ptr()) == "generic"
+    ref = float(K.ssim_flat_plain(xf, yf, C))
+    got = _route_sum(*views, C, "generic")
+    assert abs(got / ((H - 6) * (W - 6) * C) - ref) < TOL
+    assert abs(got - _route_sum(xf, yf, C, "generic")) <= 1e-6 * abs(got)
+    assert abs(float(K.ssim_flat(*views, C)) - ref) < TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES[-3:])
 def test_ssim_strip_edge_shapes_are_at_the_edges(card, shape):
     """The edge shapes above sit where they claim, by the kernel's own rule."""
@@ -147,10 +200,12 @@ def test_ssim_routes_agree_at_full_frames(card, shape):
 
 
 @pytest.mark.cuda
-def test_ssim_running_sums_do_not_drift(card):
-    """Both routes on a tall bright low-variance frame, against float64."""
-    x, y = bright(DRIFT, 0)
-    H, W, C = DRIFT
+@pytest.mark.parametrize("shape", [DRIFT, DRIFT3])
+def test_ssim_running_sums_do_not_drift(card, shape):
+    """Each route on a tall bright low-variance frame, against float64:
+    C = 4 on both routes, C = 3 (strips of 49 rows) on the generic one."""
+    x, y = bright(shape, 0)
+    H, W, C = shape
     xf, yf = _flat((x, y), card)
     ref = ssim_f64(x, y)
     n = (H - 6) * (W - 6) * C
@@ -181,3 +236,19 @@ def test_ssim_wrapper_rejects_what_the_kernel_does_not_take(card):
     K._ssim_call_sum(off, off, 4)
     torch.cuda.synchronize()
     assert K.launches_by_route["generic"] == before["generic"] + 1
+
+
+@pytest.mark.cuda
+def test_ab_ssim_times_two_builds(card):
+    """tools/ab_ssim.py at small frames, this tree's build against itself:
+    every (build, route) arm timed, the sums equal."""
+    from pnnp_tpu_torch.tools import ab_ssim
+
+    lib = ab_ssim.load_builds({"this": K.SOURCE})["this"]
+    out = ab_ssim.measure({"this": lib, "again": lib}, iters=3, warmup=1, rounds=1,
+                          frames={"c4": (70, 96, 4), "c3": (96, 131, 3)})
+    assert set(out["c4"]["us"]) == {"this:hopper", "again:hopper", "this:generic",
+                                    "again:generic"}
+    assert set(out["c3"]["us"]) == {"this:generic", "again:generic"}
+    assert all(v > 0 for f in out.values() for v in f["us"].values())
+    assert max(out["c4"]["gap_to_this"].values()) < ROUTE_TOL
