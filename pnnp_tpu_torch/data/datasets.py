@@ -32,6 +32,7 @@ from pnnp_tpu_torch.data.io import dataload, load_info, pack_raw_np
 from pnnp_tpu_torch.physics.calibration import HALF_CLIP, ISO_TABLES
 from pnnp_tpu_torch.physics.darkshading import SonyDarkShading
 from pnnp_tpu_torch.utils.logging import log
+from pnnp_tpu_torch.utils.profiling import count, span
 
 
 def _clip_pair(lr, hr, clip_mode):
@@ -134,14 +135,17 @@ class BaseRawDataset:
 
     # -- packing + cropping ------------------------------------------------
     def pack(self, raw, clip):
-        """Pack+normalize a mosaic; uses the fused C++ path when built."""
+        """Pack+normalize a mosaic; uses the fused C++ path when built
+        (counters ``pack.native`` and ``pack.numpy`` count the route taken)."""
         from pnnp_tpu_torch.data import native
 
         if native.available():
+            count("pack.native")
             return native.pack_full(
                 np.asarray(raw, np.float32), float(self.args["wp"]),
                 float(self.args["bl"]), clip=clip,
             )
+        count("pack.numpy")
         return pack_raw_np(raw, self.args["wp"], self.args["bl"], norm=True, clip=clip)
 
     AUG_MODES = 4  # paired data: no rot90 (row noise is directional)
@@ -351,17 +355,22 @@ class ELDDataset(BaseRawDataset):
         lr_id, hr_id = self._raw_ids(scene, iso, ratio)
         exp_ms = float(scene[hr_id]["ExposureTime"]) * 1000.0
 
-        hr_raw = np.asarray(dataload(scene[hr_id]["data"])).reshape(self.H, self.W)
-        lr_raw = np.asarray(dataload(scene[lr_id]["data"])).reshape(self.H, self.W)
-        lr_raw = self.correct_lr(lr_raw, iso, exp_ms / ratio)
-
-        lr = self.pack(lr_raw, clip=False)[None]
-        hr = self.pack(hr_raw, clip=True)[None]
-        if not self.args["ori"]:
-            lr = lr * ratio
-        lr, hr = _clip_pair(lr, hr, self.args["clip"])
+        # the stages of a frame, each a span while tracing is on
+        with span("eld.read"):
+            hr_raw = np.asarray(dataload(scene[hr_id]["data"])).reshape(self.H, self.W)
+            lr_raw = np.asarray(dataload(scene[lr_id]["data"])).reshape(self.H, self.W)
+        with span("eld.darkshade", iso=iso):
+            lr_raw = self.correct_lr(lr_raw, iso, exp_ms / ratio)
+        with span("eld.pack"):
+            lr = self.pack(lr_raw, clip=False)[None]
+            hr = self.pack(hr_raw, clip=True)[None]
+        with span("eld.scale_clip"):
+            if not self.args["ori"]:
+                lr = lr * ratio
+            lr, hr = _clip_pair(lr, hr, self.args["clip"])
+            hr, lr = np.ascontiguousarray(hr), np.ascontiguousarray(lr)
         return {
-            "hr": np.ascontiguousarray(hr), "lr": np.ascontiguousarray(lr),
+            "hr": hr, "lr": lr,
             "ratio": np.full(1, ratio, np.float32), "iso": np.full(1, iso, np.float32),
             "wb": np.asarray(scene[hr_id]["wb"], np.float32),
             "ccm": np.asarray(scene[hr_id]["ccm"], np.float32),

@@ -9,6 +9,14 @@ dataset RNG deterministically from (base_seed, epoch, worker); batches are
 assigned to workers round-robin, so multi-worker epochs are reproducible
 regardless of thread scheduling.
 
+While tracing is on (:mod:`pnnp_tpu_torch.utils.profiling`), each batch
+records a ``loader.fetch`` span where it is built (by a worker, or by the
+consumer without workers), with its ``collate`` a ``loader.collate`` span
+inside, and a ``loader.wait`` span where the consumer waits for it. Both
+carry the pass number and the batch index ``bi``; the wait also carries
+``first`` (the pass's first batch), ``ready`` (built when asked) and
+``built`` (batches built and not consumed, at the ask).
+
 Under several data-parallel ranks (``shard=(rank, n)``) every rank draws the
 same shuffle order (from ``seed + epoch``) and loads only its contiguous
 block of each global batch's indices, rank ``r`` the ``r``-th ``1/n`` (a
@@ -19,10 +27,15 @@ batch of fewer indices wrap-padded to a multiple of ``n`` first, as
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Iterator, Optional
 
 import numpy as np
+
+from pnnp_tpu_torch.utils.profiling import span
+
+_PASSES = itertools.count()  # numbers the passes of every loader in the process
 
 
 def collate(samples: list) -> dict:
@@ -89,16 +102,26 @@ class DataLoader:
                 worker += self.shard[0] * max(self.num_workers, 1)
             self.dataset.reseed_worker(self.seed, self.epoch, worker)
 
+    def _fetch(self, b, rid: dict, bi: int, worker: int) -> dict:
+        """Batch ``bi`` (indices ``b``) built: its items, then ``collate``."""
+        with span("loader.fetch", **rid, bi=bi, worker=worker):
+            items = [self.dataset[int(i)] for i in b]
+            with span("loader.collate"):
+                return collate(items)
+
     def __len__(self):
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
         batches = self._index_batches()
+        rid = {"pass": next(_PASSES)}
         if self.num_workers == 0:
             self._reseed(0)
-            for b in batches:
-                yield collate([self.dataset[int(i)] for i in b])
+            for bi, b in enumerate(batches):
+                with span("loader.wait", **rid, bi=bi, first=bi == 0, ready=False, built=0):
+                    batch = self._fetch(b, rid, bi, 0)
+                yield batch
             return
 
         # Static round-robin assignment (worker w takes batches w, w+nw, ...)
@@ -128,7 +151,7 @@ class DataLoader:
                     if state["stop"]:
                         return
                 try:
-                    batch = collate([self.dataset[int(i)] for i in batches[bi]])
+                    batch = self._fetch(batches[bi], rid, bi, w)
                 except BaseException as e:  # surface in consumer
                     batch = e
                 with cond:
@@ -146,7 +169,8 @@ class DataLoader:
         try:
             for bi in range(len(batches)):
                 owner = threads[bi % self.num_workers]
-                with cond:
+                with span("loader.wait", **rid, bi=bi, first=bi == 0, ready=bi in results,
+                          built=len(results)), cond:
                     while bi not in results:
                         if not owner.is_alive():
                             raise RuntimeError(

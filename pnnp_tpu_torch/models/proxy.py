@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from pnnp_tpu_torch.ops.poisson import poisson_sample
+from pnnp_tpu_torch.utils.profiling import count
 
 _SQ2 = math.sqrt(2.0)
 _LOG2 = math.log(2.0)
@@ -281,6 +282,7 @@ class QuantileHead(nn.Module):
             parts.append(checkpoint(QuantileHead._core_conv, *args, use_reentrant=False,
                                     preserve_rng_state=False)
                          if recompute else QuantileHead._core_conv(*args))
+        count("proxy.chunks", len(parts))
         core = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         # density floor 1e-10 (lp ~ -23): far outside the support the core
         # underflows and the log's 1/core would overflow the backward; the

@@ -129,6 +129,7 @@ from pnnp_tpu_torch.train import (
 )
 from pnnp_tpu_torch.utils.device import resolve_device
 from pnnp_tpu_torch.utils.logging import AverageMeter, StepTimer, is_main_process, log
+from pnnp_tpu_torch.utils.profiling import count, span, tracing
 
 _TRAIN_MODES = ("train", "trainonly")
 
@@ -554,7 +555,15 @@ class Trainer:
         log(f"Loaded torch checkpoint {path}")
 
     def _to_device(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the device; while tracing is on, counters
+        ``h2d.bytes`` and ``h2d.pageable_bytes`` (those not in pinned memory)
+        add its bytes."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if tracing():
+            count("h2d.bytes", t.nbytes)
+            if not t.is_pinned():
+                count("h2d.pageable_bytes", t.nbytes)
+        return t.to(self.device)
 
     def _train_batch(self, batch: dict) -> dict:
         """Host batch -> the tensors its synth reads (``synth_keys``), on the
@@ -591,12 +600,13 @@ class Trainer:
             try:
                 for batch in loader:
                     self.timer.tick("loader")
-                    metrics = self.train_step(self.model, self.opt,
-                                              self._train_batch(self._place_batch(batch)),
-                                              gen, epoch)
-                    # the step's one sync, inside 'net': the bucket holds the
-                    # device time, and 'loader' only the wait for the host
-                    self.train_psnr.update(float(metrics["psnr"]))
+                    with span("h2d", device=True):
+                        feed = self._train_batch(self._place_batch(batch))
+                    with span("train.step"):
+                        metrics = self.train_step(self.model, self.opt, feed, gen, epoch)
+                        # the step's one sync, inside 'net': the bucket holds the
+                        # device time, and 'loader' only the wait for the host
+                        self.train_psnr.update(float(metrics["psnr"]))
                     self.timer.tick("net")
             except RuntimeError as e:
                 # Fault tolerance: log and continue with the next epoch (the
@@ -681,34 +691,36 @@ class Trainer:
                             num_workers=0 if self.debug else 2)
         for k, batch in enumerate(loader):
             name = batch["name"][0] if isinstance(batch["name"], list) else batch["name"]
-            lr, hr = self._to_device(batch["lr"]), self._to_device(batch["hr"])
+            with span("h2d", device=True):
+                lr, hr = self._to_device(batch["lr"]), self._to_device(batch["hr"])
             ratio = float(np.asarray(batch["ratio"]).reshape(-1)[0])
-            if fused:
-                step = ((self._int8_eval_step(lr) or self._fused_eval)
-                        if self.int8_eval else self._fused_eval)
-                # a sharded step gathers the corrected frame only for figures
-                kw = {"gather": self.save_plot} if self.mesh_spatial is not None else {}
-                out = step(lr, hr, ratio, ori=ori, correct=correct,
-                           with_inputs=self.save_plot, **kw)
-                m = out[1]
-                p, s = float(m["psnr"]), float(m["ssim"])
-                if self.save_plot:
-                    p_in, s_in = float(m["psnr_in"]), float(m["ssim_in"])
-                    # panels from the step itself (ori-scaled, clipped)
-                    dn, lr = (t.reshape(hr.shape) for t in (out[0], out[2]))
-            else:
-                dn = self._forward_full(lr)
-                if ori:
-                    lr, dn = lr * ratio, dn * ratio
-                lr, dn = lr.clamp(0, 1), dn.clamp(0, 1)
-                if correct:
-                    dn = illuminance_correct(dn, hr)
-                tgt255 = hr[0].clamp(0, 1) * 255.0
-                p = float(psnr(dn[0] * 255.0, tgt255))
-                s = float(ssim_kernel(dn[0] * 255.0, tgt255))
-                if self.save_plot and not self.rgb_metrics:
-                    p_in = float(psnr(lr[0] * 255.0, tgt255))
-                    s_in = float(ssim_kernel(lr[0] * 255.0, tgt255))
+            with span("eval.step", device=True):
+                if fused:
+                    step = ((self._int8_eval_step(lr) or self._fused_eval)
+                            if self.int8_eval else self._fused_eval)
+                    # a sharded step gathers the corrected frame only for figures
+                    kw = {"gather": self.save_plot} if self.mesh_spatial is not None else {}
+                    out = step(lr, hr, ratio, ori=ori, correct=correct,
+                               with_inputs=self.save_plot, **kw)
+                    m = out[1]
+                    p, s = float(m["psnr"]), float(m["ssim"])
+                    if self.save_plot:
+                        p_in, s_in = float(m["psnr_in"]), float(m["ssim_in"])
+                        # panels from the step itself (ori-scaled, clipped)
+                        dn, lr = (t.reshape(hr.shape) for t in (out[0], out[2]))
+                else:
+                    dn = self._forward_full(lr)
+                    if ori:
+                        lr, dn = lr * ratio, dn * ratio
+                    lr, dn = lr.clamp(0, 1), dn.clamp(0, 1)
+                    if correct:
+                        dn = illuminance_correct(dn, hr)
+                    tgt255 = hr[0].clamp(0, 1) * 255.0
+                    p = float(psnr(dn[0] * 255.0, tgt255))
+                    s = float(ssim_kernel(dn[0] * 255.0, tgt255))
+                    if self.save_plot and not self.rgb_metrics:
+                        p_in = float(psnr(lr[0] * 255.0, tgt255))
+                        s_in = float(ssim_kernel(lr[0] * 255.0, tgt255))
             self.eval_psnr.update(p)
             self.eval_ssim.update(s)
             metrics[name] = [p, s]

@@ -53,6 +53,7 @@ from pnnp_tpu_torch.train import (
 )
 from pnnp_tpu_torch.utils.device import resolve_device
 from pnnp_tpu_torch.utils.logging import AverageMeter, is_main_process, log
+from pnnp_tpu_torch.utils.profiling import span
 
 # loaders that emit lr == hr: their noise is synthesized downstream
 _SYNTHETIC = ("NF_Syn_Dataset", "Proxy_Dataset", "IMX686_NF_Syn_Dataset",
@@ -67,16 +68,22 @@ class NoiseStep:
     :meth:`update`) so that the data-parallel step
     (:func:`~pnnp_tpu_torch.parallel.make_sharded_noise_step`) averages the
     gradients between them, before the clip. Metrics are detached 0-dim
-    tensors, ``lr`` a float."""
+    tensors, ``lr`` a float. While tracing is on, the loss and its backward
+    are device spans ``<kind>.forward`` and ``<kind>.backward``."""
 
-    def __init__(self, model, loss_fn, lr_schedule, clip_norm: Optional[float] = None):
+    def __init__(self, model, loss_fn, lr_schedule, clip_norm: Optional[float] = None,
+                 kind: str = "proxy"):
         self.model, self.loss_fn = model, loss_fn
         self.lr_schedule, self.clip_norm = lr_schedule, clip_norm
+        self.spans = (f"{kind}.forward", f"{kind}.backward")
 
     def forward_backward(self, opt, lr_img, hr_img, ratio, iso) -> dict:
         opt.zero_grad(set_to_none=True)
-        loss, metrics = self.loss_fn(lr_img, hr_img, ratio, iso)
-        loss.backward()
+        with span(self.spans[0], device=True):
+            loss, metrics = self.loss_fn(lr_img, hr_img, ratio, iso)
+        # the proxy's backward recomputes each checkpointed chunk of its density
+        with span(self.spans[1], device=True):
+            loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     def update(self, opt, epoch) -> float:
@@ -104,7 +111,7 @@ def make_nf_train_step(nf, lr_schedule, clip_norm: Optional[float] = None) -> No
         return nll, {"nll": nll + torch.mean(torch.log(ratio)),
                      "sd_z": sd_z * torch.mean(ratio)}
 
-    return NoiseStep(nf, loss_fn, lr_schedule, clip_norm)
+    return NoiseStep(nf, loss_fn, lr_schedule, clip_norm, kind="nf")
 
 
 def make_proxy_train_step(proxy, lr_schedule, dark_thresh: float = 2.0,

@@ -100,13 +100,13 @@ class AverageMeter:
 
 
 class StepTimer:
-    """Wall-clock bucket split of a train step: loader/synth/net/bp shares.
+    """Wall-clock bucket split of a train step: loader/net shares.
 
     The reference shows tqdm percentages per bucket (trainer_SID.py:81-124);
     this is the same instrument, host-side.
     """
 
-    def __init__(self, buckets=("loader", "synth", "net", "bp")):
+    def __init__(self, buckets=("loader", "net")):
         self.buckets = {b: 0.0 for b in buckets}
         self._t = time.time()
 

@@ -1,8 +1,9 @@
 """The port's small utilities against the JAX package, on the CPU:
 ``utils/video.py`` (index windows exact, gathers to atol 1e-6),
 ``utils/debugger.py`` (the default algorithm's output to atol 1e-6, the
-contact sheets written) and ``utils/profiling.py`` (timers, a torch.profiler
-trace written to its logdir, named regions in it)."""
+contact sheets written) and ``utils/profiling.py`` (a torch.profiler trace
+written to its logdir, a span named in it; the tracer's own tests are in
+tests/test_torch_tracing.py)."""
 
 import json
 import os
@@ -62,24 +63,10 @@ def test_debugger_writes_contact_sheets(tmp_path):
     assert seen == [1, 5, 9]
 
 
-def test_fn_timer_accumulates():
-    tprof.reset_fn_timers()
-
-    @tprof.fn_timer
-    def work(n):
-        return sum(range(n))
-
-    assert work(10) == 45 and work(5) == 10
-    key = work.__qualname__
-    assert tprof._COUNTS[key] == 2 and tprof._TOTALS[key] > 0
-    tprof.reset_fn_timers()
-    assert not tprof._COUNTS
-
-
 def test_device_trace_writes_annotated_trace(tmp_path):
     logdir = tmp_path / "trace"
     with tprof.device_trace(str(logdir)):
-        with tprof.annotate("pnnp_region"):
+        with tprof.span("pnnp_region"):
             (torch.ones(64) * 2).sum()
     files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
     assert len(files) == 1
