@@ -237,6 +237,20 @@ and no result line):
    per call, CUDA graphs of 1, 2, 4 frames bit-equal to the loop; int8
    within 0.08 relative L2).
 
+21. the proxy NLL's kernel pair (``kernels/proxy_core.py``,
+   ``csrc/proxy_core.cu``; ``phase_proxy_core``, after phase 12's proxy
+   timings) at the main path's shape, PNNP.yml's proxy at ISO 800 and
+   12800: the pixel head on one [1, 4, 512, 512] frame, the row head on its
+   2,048 row means (one s a value), each head's core and knot gradient
+   against float64 ``_core_conv`` (``PROXY_CORE_TOL``, as
+   tests/test_torch_cuda_proxy_kernel.py), two launches bit-identical, the
+   forward and the backward kernel timed against the bound of that input.
+   The kernels' launches are counted on every path of this script that runs
+   the proxy NLL on the card (phases 5, 6, 7, 10's A/B, 15's
+   ``demo_pnnp_pipeline``, 17, 12's proxy timings): each at least one of
+   each kernel, phase 5's loss check exactly 2 and 2, the proxy trainer 2
+   backward launches a step, PNNP.yml's ``--mode train`` (the synth) none.
+
 Phase 2 also holds the ``generic`` route at its own edges
 (``GENERIC_SHAPES``: C = 1, 2, 3, 5, 8, 16, rows of ``W*C % 4 != 0`` lanes,
 unaligned views, strip and warp-column edges at C = 3), at a C = 3 drift
@@ -254,7 +268,10 @@ the train, the PNNP, the four baseline, the two NF.yml, the rgb, unfused,
 LED, predict, int8 and packed-train runs, the two ranks' ``sharded``
 path, phase 15's ``fullres`` and ``eval_loop`` runs and phase 19's
 ``golden`` sweeps;
-``launches_by_path`` keeps each),
+``launches_by_path`` keeps each; and a ``proxy_core`` row, phase 21's: its
+forward and backward launches by path and in all, its largest errors, and
+its times, bound and share for the pixel head at ISO 800 with
+``by_shape`` for both heads at both ISOs),
 the ``nvidia-smi``
 name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -1342,13 +1359,14 @@ def phase_pnnp_paths(dev):
                 yaml.safe_dump(_nf_runfile(root), f)
             NF.make_proxy_train_step = timed_step
             try:
-                torch.cuda.synchronize()
+                _proxy_core_zero()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 nf = NF.main(["-f", yml, "--kind", "proxy"])
                 torch.cuda.synchronize()
                 nf_wall = time.perf_counter() - t0
                 peak = torch.cuda.max_memory_allocated()
+                nf_core = _proxy_core_read()
             finally:
                 NF.make_proxy_train_step = make_step
             text = "\n".join(lines)
@@ -1369,7 +1387,11 @@ def phase_pnnp_paths(dev):
             step_ms = [a.elapsed_time(b) for a, b, _ in steps]
             _check(len(steps) == TRAIN_SCENES * TRAIN_EPOCHS
                    and all(math.isfinite(x) for *_, x in steps), f"proxy steps {steps}")
+            # each step: one forward and one backward of each head
+            _check(nf_core["bwd"] == 2 * len(steps) and nf_core["fwd"] >= 2 * len(steps),
+                   f"proxy trainer: proxy core launches {nf_core} for {len(steps)} steps")
             out["proxy_trainer"] = {
+                "proxy_core_launches": nf_core,
                 "wall_s": nf_wall, "steps": len(steps), "nll": [x for *_, x in steps],
                 "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
                 "peak_mem_gib": peak / 2**30, "epoch_lines": nll_lines,
@@ -1406,11 +1428,13 @@ def phase_pnnp_paths(dev):
                 torch.cuda.synchronize()
                 K.launches = 0
                 K.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+                _proxy_core_zero()
                 t0 = time.perf_counter()
                 trainer = T.main(["-f", yml, "--mode", "train", "--nofig"])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches = {"ssim": K.launches, "by_route": dict(K.launches_by_route)}
+                pnnp_core = _proxy_core_read()  # the synth samples: no NLL
             finally:
                 TrainStep.__call__, T.Trainer.eval, PixelWiseISOProxy.sample = (
                     call, evaluate, sample)
@@ -1442,8 +1466,9 @@ def phase_pnnp_paths(dev):
         moved = max(float(np.abs(last["params"][n][k] - init[n][k]).max())
                     for n in init for k in init[n])
         _check(moved > 0.1 * PNNP_LR, f"PNNP params did not move: {moved}")
+        _check(not any(pnnp_core.values()), f"PNNP --mode train ran the NLL: {pnnp_core}")
         out["pnnp_main_path"] = {
-            "wall_s": wall, "steps": steps_n, "losses": losses, "eval_legs": legs,
+            "proxy_core_launches": pnnp_core, "wall_s": wall, "steps": steps_n, "losses": losses, "eval_legs": legs,
             "proxy_samples": len(samples), "launches": launches, "params_moved": moved,
             "epoch_lines": [e for e in lines if ": loss ok," in e]}
         print(f"PNNP path: --mode train (Proxy_Dataset, nf=32, proxy d={PROXY_D}), "
@@ -1540,6 +1565,164 @@ def phase_proxy_timings(dev, batch, proxy_params):
     print(f"proxy synth {out['synth_ms']} ms; bf16 train step with the proxy synth "
           f"{train_ms:.3f} ms (split {split}, peak {train_peak / 2**30:.2f} GiB)", flush=True)
     return out
+
+
+# ------------------------------------------------- the proxy NLL's kernels
+PROXY_CORE_ISOS = (800.0, 12800.0)
+# core, knot gradient: of their largest float64 magnitude, and at most twice
+# the plain f32 path's error plus 1e-6 (tests/test_torch_cuda_proxy_kernel.py)
+PROXY_CORE_TOL = (1e-5, 5e-4)
+SFU_PER_S = 16 * 132 * 1.98e9  # erfc, exp: 16 a clock per SM, 132 SMs, 1.98 GHz
+PROXY_OPS_PER_KNOT, PROXY_OPS_PER_BIN = 4, 27  # portbench/counts.py's count of _core_conv
+
+
+def _proxy_core_zero():
+    """Set the proxy core kernels' launch counts to 0 (the work before done)."""
+    import pnnp_tpu_torch.kernels.proxy_core as PC
+
+    torch.cuda.synchronize()
+    PC.launches = 0
+    PC.launches_by_kernel = dict.fromkeys(PC.KERNELS, 0)
+
+
+def _proxy_core_read():
+    import pnnp_tpu_torch.kernels.proxy_core as PC
+
+    torch.cuda.synchronize()
+    return dict(PC.launches_by_kernel)
+
+
+def _core_plain(knots, x, s, g, dtype, chunk=8192):
+    """``_core_conv`` and the knots' gradient of sum(core * g) in ``dtype``,
+    ``chunk`` values at a time."""
+    from pnnp_tpu_torch.models import QuantileHead
+
+    kn = knots.to(dtype).detach().requires_grad_(True)
+    xd, gd = x.to(dtype), g.to(dtype)
+    sd = torch.broadcast_to(s, x.shape).to(dtype)
+    cores = []
+    for a in range(0, x.shape[1], chunk):
+        c = QuantileHead._core_conv(kn[:, None, :], xd[:, a:a + chunk, None],
+                                    sd[:, a:a + chunk, None])
+        (c * gd[:, a:a + chunk]).sum().backward()
+        cores.append(c.detach())
+    return torch.cat(cores, 1), kn.grad
+
+
+def _plain_path(knots, x, s, grad):
+    """The plain path as ``log_prob_conv_gaussian`` runs it: chunks of
+    ``CONV_CHUNK_ELEMS``, checkpointed under autograd."""
+    from torch.utils.checkpoint import checkpoint
+
+    from pnnp_tpu_torch.models.proxy import CONV_CHUNK_ELEMS, QuantileHead
+
+    n, m = x.shape
+    chunk = max(1, CONV_CHUNK_ELEMS // (n * knots.shape[1]))
+    s = torch.broadcast_to(s, x.shape)
+    parts = []
+    for a in range(0, m, chunk):
+        args = (knots[:, None, :], x[:, a:a + chunk, None], s[:, a:a + chunk, None])
+        parts.append(checkpoint(QuantileHead._core_conv, *args, use_reentrant=False,
+                                preserve_rng_state=False) if grad
+                     else QuantileHead._core_conv(*args))
+    core = torch.cat(parts, 1)
+    if grad:
+        core.sum().backward()
+
+
+def _proxy_core_head(knots, x, s, g):
+    """One head's checks and times (see :func:`phase_proxy_core`)."""
+    import pnnp_tpu_torch.kernels.proxy_core as PC
+
+    n, m = x.shape
+    d = knots.shape[1] - 1
+    kn = knots.clone().requires_grad_(True)
+    core = PC.core_conv(kn, x, s)
+    (core * g).sum().backward()
+    ref_core, ref_grad = _core_plain(knots, x, s, g, torch.float64)
+    f32_core, f32_grad = _core_plain(knots, x, s, g, torch.float32)
+    err = lambda a, ref: float((a.double() - ref).abs().max() / ref.abs().max())
+    e = {"core": err(core, ref_core), "knot_grad": err(kn.grad, ref_grad),
+         "core_plain_f32": err(f32_core, ref_core), "knot_grad_plain_f32": err(f32_grad, ref_grad)}
+    for k, tol in zip(("core", "knot_grad"), PROXY_CORE_TOL):
+        _check(e[k] <= tol and e[k] <= 2 * e[f"{k}_plain_f32"] + 1e-6,
+               f"proxy core {k} at {[n, m]}, d={d}: {e}")
+    kn2 = knots.clone().requires_grad_(True)
+    core2 = PC.core_conv(kn2, x, s)
+    (core2 * g).sum().backward()
+    _check(torch.equal(core, core2) and torch.equal(kn.grad, kn2.grad),
+           f"proxy core at {[n, m]}: two launches differ")
+    del ref_core, ref_grad, f32_core, f32_grad, core, core2
+    fwd = _loop_ms(lambda: PC._forward(knots, x, s), warmup=2, iters=20)
+    bwd = _loop_ms(lambda: PC._backward(knots, x, s, g), warmup=2, iters=20)
+    path = _loop_ms(lambda: PC.core_conv(kn, x, s).backward(g), warmup=2, iters=20)
+    with torch.no_grad():
+        plain_fwd = _loop_ms(lambda: _plain_path(knots, x, s, False), warmup=1, iters=1)
+    plain = _loop_ms(lambda: _plain_path(kn, x, s, True), warmup=1, iters=1)
+    ops = n * m * (PROXY_OPS_PER_KNOT * (d + 1) + PROXY_OPS_PER_BIN * d)
+    sfu = n * m * (2 * d + 1)
+    t_ops, t_sfu = ops / FP32_FLOP_PER_S * 1e3, sfu / SFU_PER_S * 1e3
+    bound = 3 * max(t_ops, t_sfu)  # the backward twice the forward
+    torch.cuda.empty_cache()
+    return {"shape": [n, m], "d": d, "s_per_value": int(s.shape[1] != 1),
+            "ms": fwd + bwd, "fwd_ms": fwd, "bwd_ms": bwd, "path_fwd_bwd_ms": path,
+            "plain_ms": plain, "plain_fwd_ms": plain_fwd,
+            "bound_ms": bound, "bound_fwd_ms": bound / 3, "ops": ops, "erfc_exp": sfu,
+            "bound_by": "operations" if t_ops >= t_sfu else "erfc and exp",
+            "bound_share": bound / (fwd + bwd), "fwd_bound_share": bound / 3 / fwd,
+            "bwd_bound_share": 2 * bound / 3 / bwd, "err_of_max": e}
+
+
+def phase_proxy_core(dev):
+    """The proxy NLL's kernel pair (``kernels/proxy_core.py``,
+    ``csrc/proxy_core.cu``) at the main path's shape. PNNP.yml's proxy (d =
+    1024, seed 0) gives each head's knots at each of ``PROXY_CORE_ISOS``;
+    the pixel head scores one [1, 4, 512, 512] frame (1,048,576 values, x ~
+    N(0, the law's sd), s = s0), the row head its 2,048 row means (one s a
+    value). For each: the core and the knots' gradient of sum(core * g)
+    against float64 ``_core_conv`` within ``PROXY_CORE_TOL``; two launches
+    bit-identical; the forward and the backward kernel alone (mean of 20
+    back-to-back launches), the whole path with autograd, and the plain
+    chunked path once after a warm-up call; the bound of that input: the larger of 31 float32
+    operations a (value, knot) pair at ``FP32_FLOP_PER_S`` and 2d + 1 erfc
+    and exp calls a value at ``SFU_PER_S``, the backward twice the forward.
+    Returns (the ``kernels`` row's fields, the largest errors)."""
+    from pnnp_tpu_torch.models import QuantileHead
+
+    proxy = _fresh_proxy(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m = 4 * PATCH * PATCH
+    by_shape = {}
+    for iso in PROXY_CORE_ISOS:
+        with torch.no_grad():
+            _, hp_px, hp_row = proxy.heads(torch.tensor([iso], device=dev), 1)
+            sd = float(QuantileHead.variance(hp_px)) ** 0.5
+        x = torch.randn(1, m, generator=gen, device=dev) * sd
+        g = torch.rand(1, m, generator=gen, device=dev) - 0.3
+        by_shape[f"pixel_iso{int(iso)}"] = _proxy_core_head(
+            hp_px.knots.detach().contiguous(), x,
+            torch.full((1, 1), proxy.smooth_s0, device=dev), g)
+        r = 4 * PATCH
+        xr = torch.randn(1, r, generator=gen, device=dev) * sd / PATCH ** 0.5
+        sr = (0.5 + torch.rand(1, r, generator=gen, device=dev)) * sd / PATCH ** 0.5
+        gr = torch.rand(1, r, generator=gen, device=dev) - 0.3
+        by_shape[f"row_iso{int(iso)}"] = _proxy_core_head(
+            hp_row.knots.detach().contiguous(), xr, sr, gr)
+        for head in ("pixel", "row"):
+            h = by_shape[f"{head}_iso{int(iso)}"]
+            print(f"proxy core {head} head, ISO {int(iso)}, {h['shape']} d={h['d']}: fwd "
+                  f"{h['fwd_ms']:.3f} ms, bwd {h['bwd_ms']:.3f} ms (bound {h['bound_fwd_ms']:.3f} / "
+                  f"{2 * h['bound_fwd_ms']:.3f}, {h['bound_share']:.1%} of it), path "
+                  f"{h['path_fwd_bwd_ms']:.3f} ms, plain {h['plain_fwd_ms']:.2f} / "
+                  f"{h['plain_ms']:.2f} ms; errors of the max {h['err_of_max']}", flush=True)
+    errs = {k: max(h["err_of_max"][k] for h in by_shape.values()) for k in ("core", "knot_grad")}
+    main = by_shape[f"pixel_iso{int(PROXY_CORE_ISOS[0])}"]
+    row = {"shape": [1, 4, PATCH, PATCH], "d": PROXY_D,
+           **{k: main[k] for k in ("ms", "fwd_ms", "bwd_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "bound_share")},
+           # no PyTorch call computes the Gaussian-convolved bin law
+           "library_ms": None, "by_shape": by_shape}
+    return row, errs
 
 
 # ------------------------------------------------ IMX686 and the baselines
@@ -2501,7 +2684,12 @@ def start_ab():
     """``pnnp_tpu_torch/tools/ab_proxy_vs_physics.py`` at full width with its
     budget cut (``AB_ARGS``), in a process of its own on the same card.
     Returns (process, start time)."""
-    return _start_tool(["-m", "pnnp_tpu_torch.tools.ab_proxy_vs_physics"] + AB_ARGS)
+    script = ("import json\n"
+              "from pnnp_tpu_torch.kernels import proxy_core\n"
+              "from pnnp_tpu_torch.tools import ab_proxy_vs_physics\n"
+              f"ab_proxy_vs_physics.main({AB_ARGS!r})\n"
+              "print(json.dumps({'proxy_core': proxy_core.launches_by_kernel}))\n")
+    return _start_tool(["-c", script])
 
 
 def finish_ab(started):
@@ -2512,7 +2700,10 @@ def finish_ab(started):
     out, err = proc.communicate(timeout=900)
     wall = time.perf_counter() - t0
     _check(proc.returncode == 0, f"A/B exited {proc.returncode}: {err[-3000:]}")
-    res = json.loads(out.strip().splitlines()[-1])
+    *_, last, counts = out.strip().splitlines()
+    res = json.loads(last)
+    core = json.loads(counts)["proxy_core"]
+    _check(core["fwd"] > 0 and core["bwd"] > 0, f"A/B: proxy core launches {core}")
     timing = json.loads(err.strip().splitlines()[-1].split("[timing] ", 1)[1])
     rows = res["rows"]
     _check(len(rows) == 8 and any(r["heldout_iso"] for r in rows)
@@ -2529,7 +2720,7 @@ def finish_ab(started):
     print(f"A/B {AB_ARGS}: {wall:.1f} s, mean delta {res['mean_delta_db']:+.3f} dB, worst "
           f"{res['worst_delta_db']:+.3f} (tests/test_ab_recipe.py's bars held); stages "
           f"{timing}", flush=True)
-    return dict(res, args=AB_ARGS, wall_s=wall, timing=timing)
+    return dict(res, args=AB_ARGS, wall_s=wall, timing=timing, proxy_core_launches=core)
 
 
 # ------------------------------------------------------------ packed forms, int8
@@ -3197,10 +3388,13 @@ def start_demos():
     """``demo_train`` and ``demo_pnnp_pipeline`` at reduced steps, one after
     the other in one process of their own, beside the ISO ladder."""
     script = ("import json\n"
+              "from pnnp_tpu_torch.kernels import proxy_core as PC\n"
               "from pnnp_tpu_torch.tools import demo_pnnp_pipeline, demo_train\n"
               f"a = demo_train.main({DEMO_TRAIN_ARGS!r})\n"
+              "PC.launches_by_kernel = dict.fromkeys(PC.KERNELS, 0)\n"
               f"b = demo_pnnp_pipeline.main({DEMO_PNNP_ARGS!r})\n"
-              "print(json.dumps({'demo_train': a, 'demo_pnnp_pipeline': b}))\n")
+              "print(json.dumps({'demo_train': a, 'demo_pnnp_pipeline': b,\n"
+              "                  'proxy_core': PC.launches_by_kernel}))\n")
     return _start_tool(["-c", script])
 
 
@@ -3215,6 +3409,9 @@ def finish_demos(started):
                f"{name}: {r}")
     pn = res["demo_pnnp_pipeline"]
     _check(pn["kld_after"] < pn["kld_before"], f"demo_pnnp_pipeline: KLD did not fall {pn}")
+    core = res["proxy_core"]
+    _check(core["fwd"] > 0 and core["bwd"] > 0,
+           f"demo_pnnp_pipeline: proxy core launches {core}")
     print(f"demos {DEMO_TRAIN_ARGS} / {DEMO_PNNP_ARGS}: {wall:.1f} s beside the ISO ladder\n"
           + "\n".join(out.strip().splitlines()[:-1]), flush=True)
     return dict(res, wall_s=wall)
@@ -3793,7 +3990,14 @@ def main() -> int:
     launches, main_err = phase_main_path(dev)
     train_launches, train_run, batch = phase_train_main_path(dev)
     step_check = phase_train_step_check(dev)
+    # the proxy core kernels' launches of each path that runs the proxy NLL
+    # on the card: every count set to 0 just before, read just after
+    core_launches = {}
+    _proxy_core_zero()
     proxy_checks = phase_proxy_checks(dev)
+    core_launches["proxy_checks"] = _proxy_core_read()
+    _check(core_launches["proxy_checks"] == {"fwd": 2, "bwd": 2},
+           f"proxy loss check: proxy core launches {core_launches['proxy_checks']}")
     poisson = phase_poisson(dev)
     # validate_nf, the reduced A/B and validate_int8 run beside the ladder,
     # each in a process of its own
@@ -3805,7 +4009,9 @@ def main() -> int:
     vint8 = start_validate_int8(vint8_ckpt)
     vnm, demos = start_validate_noise_model(), start_demos()
     try:
+        _proxy_core_zero()
         ladder = phase_iso_ladder(dev, ladder_params)
+        core_launches["iso_ladder"] = _proxy_core_read()
         validate_nf = finish_validate_nf(validate_nf)
         ab = finish_ab(ab)
         vint8 = finish_validate_int8(vint8)
@@ -3816,8 +4022,14 @@ def main() -> int:
             if isinstance(started, tuple) and started[0].poll() is None:
                 started[0].kill()
                 started[0].wait()
+    _proxy_core_zero()
     proxy_tools = phase_proxy_tools(dev, ladder_params)
+    core_launches["proxy_tools"] = _proxy_core_read()
     pnnp_launches, pnnp_runs, proxy_params = phase_pnnp_paths(dev)
+    core_launches["proxy_trainer"] = pnnp_runs["proxy_trainer"]["proxy_core_launches"]
+    core_launches["pnnp"] = pnnp_runs["pnnp_main_path"]["proxy_core_launches"]
+    core_launches["ab"] = ab["proxy_core_launches"]
+    core_launches["demo_pnnp_pipeline"] = demos["proxy_core"]
     with tempfile.TemporaryDirectory(prefix="pnnp_baselines_") as base:
         base_launches, base_runs, keep = phase_baselines(dev, base)
         base_timings = phase_baseline_timings(dev, keep)
@@ -3847,9 +4059,16 @@ def main() -> int:
     md_launches, multidevice = phase_multidevice(dev)
     rows, timings = phase_timings(dev)
     timings.update(phase_train_timings(dev, batch))
+    _proxy_core_zero()
+    proxy_timings = phase_proxy_timings(dev, batch, proxy_params)
+    core_launches["proxy_timings"] = _proxy_core_read()
+    _check(all(c["fwd"] > 0 and c["bwd"] > 0 for k, c in core_launches.items()
+               if k not in ("pnnp", "proxy_checks")),
+           f"a path that trains the proxy launched no proxy core kernel: {core_launches}")
+    core_row, core_errs = phase_proxy_core(dev)
     timings.update(ssim_grid=grid_checks, train_main_path=train_run, train_step_check=step_check,
                    proxy_checks=proxy_checks, iso_ladder=ladder, **pnnp_runs,
-                   proxy=phase_proxy_timings(dev, batch, proxy_params),
+                   proxy=proxy_timings,
                    baselines=dict(base_runs, **base_timings),
                    noiseflow=dict(flow_runs, card_vs_cpu=flow_card, validate_nf=validate_nf,
                                   **flow_timings),
@@ -3880,6 +4099,14 @@ def main() -> int:
         launches_by_path={k: p["by_route"][route] for k, p in by_path.items()},
         max_abs_err=max(max_err[route], main_err if route == "hopper" else srgb_err),
         **rows[route]) for name, route in (("ssim", "hopper"), ("ssim_generic", "generic"))]
+    # the proxy NLL's kernel pair: launches of each path that runs the NLL
+    # (forward and backward kernel), its largest errors against float64 (of
+    # the largest magnitude), its times and bound at the main path's shape
+    kernels.append(dict(
+        name="proxy_core", route="cuda", source="pnnp_tpu_torch/csrc/proxy_core.cu",
+        replaces=None,
+        launches=sum(c["fwd"] + c["bwd"] for c in core_launches.values()),
+        launches_by_path=core_launches, max_err_of_max=core_errs, **core_row))
     print(json.dumps({"timings": timings}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``), bound through ctypes.
 
-One kernel so far: the tiled-reduction SSIM (:mod:`.ssim`), the port of the
-JAX package's only Pallas kernel. Importing this package builds nothing;
-each kernel builds at its first launch (:mod:`.build`).
+The tiled-reduction SSIM (:mod:`.ssim`), the port of the JAX package's only
+Pallas kernel, and the proxy NLL's bin law (:mod:`.proxy_core`), which has
+no TPU counterpart. Importing this package builds nothing; each kernel
+builds at its first launch (:mod:`.build`).
 """
 
 from pnnp_tpu_torch.kernels.build import CSRC_DIR, build_all

@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from pnnp_tpu_torch.kernels import proxy_core
 from pnnp_tpu_torch.ops.poisson import poisson_sample
 from pnnp_tpu_torch.utils.profiling import count
 
@@ -261,29 +262,38 @@ class QuantileHead(nn.Module):
         evaluated through ``log_ndtr`` so large ``s`` stays finite. ``s``
         broadcasts against ``x``; s -> 0 recovers :meth:`log_prob`.
 
-        The core is evaluated ``chunk`` pixels per example at a time
-        (default: :data:`CONV_CHUNK_ELEMS` elements per chunk); with autograd
-        on, each chunk's backward recomputes its forward instead of keeping
-        the ``[n, chunk, d+1]`` intermediates.
+        On float32 CUDA tensors whose ``x`` and ``s`` do not require grad
+        the core is the fused kernels' (:mod:`pnnp_tpu_torch.kernels.proxy_core`,
+        the same law; the knots' gradient only). Elsewhere (the CPU, float64
+        on the card too) it is evaluated ``chunk`` pixels per example at a
+        time (default: :data:`CONV_CHUNK_ELEMS` elements per chunk); with
+        autograd on, each chunk's backward recomputes its forward instead of
+        keeping the ``[n, chunk, d+1]`` intermediates.
         """
         knots = hp.knots
         n, d = knots.shape[0], knots.shape[-1] - 1
-        s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
-        s = torch.clamp_min(torch.broadcast_to(s, x.shape), 1e-12)
+        s_in = torch.as_tensor(s, dtype=x.dtype, device=x.device)
+        s = torch.clamp_min(torch.broadcast_to(s_in, x.shape), 1e-12)
         xe, se = x.reshape(n, -1, 1), s.reshape(n, -1, 1)
-        m = xe.shape[1]
-        if chunk is None:
-            chunk = max(1, CONV_CHUNK_ELEMS // (n * (d + 1)))
-        kn = knots[:, None, :]
-        recompute = torch.is_grad_enabled() and knots.requires_grad and m > chunk
-        parts = []
-        for a in range(0, m, chunk):
-            args = (kn, xe[:, a:a + chunk], se[:, a:a + chunk])
-            parts.append(checkpoint(QuantileHead._core_conv, *args, use_reentrant=False,
-                                    preserve_rng_state=False)
-                         if recompute else QuantileHead._core_conv(*args))
-        count("proxy.chunks", len(parts))
-        core = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if proxy_core.routes(knots, x, s_in):
+            # one s per example where the input shows it (a broadcast view)
+            s_ex = torch.broadcast_to(s_in, x.shape).reshape(n, -1)
+            s_k = torch.clamp_min(s_ex[:, :1], 1e-12) if s_ex.stride(1) == 0 else se[..., 0]
+            core = proxy_core.core_conv(knots, xe[..., 0], s_k)
+        else:
+            m = xe.shape[1]
+            if chunk is None:
+                chunk = max(1, CONV_CHUNK_ELEMS // (n * (d + 1)))
+            kn = knots[:, None, :]
+            recompute = torch.is_grad_enabled() and knots.requires_grad and m > chunk
+            parts = []
+            for a in range(0, m, chunk):
+                args = (kn, xe[:, a:a + chunk], se[:, a:a + chunk])
+                parts.append(checkpoint(QuantileHead._core_conv, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
+                             if recompute else QuantileHead._core_conv(*args))
+            count("proxy.chunks", len(parts))
+            core = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         # density floor 1e-10 (lp ~ -23): far outside the support the core
         # underflows and the log's 1/core would overflow the backward; the
         # floor gives those samples a zero core cotangent (the tail owns them)
