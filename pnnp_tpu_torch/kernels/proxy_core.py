@@ -15,7 +15,9 @@ s [n, 1] or [n, m]) -> core [n, m]``, with a gradient for the knots only.
 :func:`routes` is the rule ``log_prob_conv_gaussian`` uses: the kernels take
 float32 CUDA tensors whose ``x`` and ``s`` do not require grad; everything
 else (the CPU, float64, a caller that differentiates ``x`` or ``s``) takes
-the plain chunked path.
+the plain chunked path. Launches count at the launch site, or, captured
+into a CUDA graph, at each of its replays (:func:`holding`,
+:func:`replayed`).
 
 :func:`plan` mirrors the kernels' grid (value tiles, knot tiles, the
 backward's warps of 31 bins and one halo knot, the splits of the values,
@@ -25,6 +27,7 @@ pair once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -39,9 +42,12 @@ SOURCE = CSRC_DIR / "proxy_core.cu"
 KERNELS = ("fwd", "bwd")
 
 # Launches since import (or since a caller reset them to 0), in all and by
-# kernel; counted at the one launch site, _launch.
+# kernel; counted at the one launch site, _launch, and for a CUDA graph at
+# each of its replays, replayed.
 launches = 0
 launches_by_kernel = dict.fromkeys(KERNELS, 0)
+# The tallies of the graphs being captured (holding), innermost last.
+_HELD: list = []
 
 # The kernels' constants, mirrored from csrc/proxy_core.cu.
 FWD_THREADS = 128
@@ -204,14 +210,43 @@ def _check(knots: torch.Tensor, x: torch.Tensor, s: torch.Tensor) -> None:
 
 def _launch(kernel: str, fn, *args) -> None:
     """The one launch site: runs ``fn(*args)`` (a C entry, which returns the
-    CUDA error after its launches) and counts it."""
+    CUDA error after its launches) and counts it. A launch recorded into a
+    CUDA graph under capture runs nothing: it goes to the capture's tally
+    (:func:`holding`) and counts at each replay (:func:`replayed`)."""
     global launches
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"proxy core {kernel} launch failed: CUDA error {err}")
+    if torch.cuda.is_current_stream_capturing():
+        if _HELD:
+            _HELD[-1][kernel] += 1
+        return
     launches += 1
     launches_by_kernel[kernel] += 1
     count(f"proxy.core_{kernel}")
+
+
+@contextlib.contextmanager
+def holding():
+    """Around a CUDA graph's capture: yields the launches the graph holds,
+    by kernel, which :func:`replayed` counts at each of its replays."""
+    held = dict.fromkeys(KERNELS, 0)
+    _HELD.append(held)
+    try:
+        yield held
+    finally:
+        _HELD.pop()
+
+
+def replayed(held: dict) -> None:
+    """Count the launches ``held`` (:func:`holding`) of a graph replayed
+    once, as :func:`_launch` counts its own."""
+    global launches
+    for kernel, k in held.items():
+        if k:
+            launches += k
+            launches_by_kernel[kernel] += k
+            count(f"proxy.core_{kernel}", k)
 
 
 def _forward(knots: torch.Tensor, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

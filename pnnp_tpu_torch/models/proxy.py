@@ -272,7 +272,10 @@ class QuantileHead(nn.Module):
         """
         knots = hp.knots
         n, d = knots.shape[0], knots.shape[-1] - 1
-        s_in = torch.as_tensor(s, dtype=x.dtype, device=x.device)
+        # a number becomes a fill on x's device, not a copy from the host
+        # (which would sync, and a CUDA graph cannot capture a sync)
+        s_in = (s.to(dtype=x.dtype, device=x.device) if isinstance(s, torch.Tensor)
+                else torch.full((), s, dtype=x.dtype, device=x.device))
         s = torch.clamp_min(torch.broadcast_to(s_in, x.shape), 1e-12)
         xe, se = x.reshape(n, -1, 1), s.reshape(n, -1, 1)
         if proxy_core.routes(knots, x, s_in):

@@ -34,6 +34,7 @@ import torch
 
 from pnnp_tpu_torch.config import load_runfile
 from pnnp_tpu_torch.data import DataLoader, build_dataset
+from pnnp_tpu_torch.kernels import proxy_core
 from pnnp_tpu_torch.models import build_proxy, proxy_to_jax
 from pnnp_tpu_torch.ops.kld import kl_div_norm_device
 from pnnp_tpu_torch.parallel import (
@@ -53,7 +54,7 @@ from pnnp_tpu_torch.train import (
 )
 from pnnp_tpu_torch.utils.device import resolve_device
 from pnnp_tpu_torch.utils.logging import AverageMeter, is_main_process, log
-from pnnp_tpu_torch.utils.profiling import span
+from pnnp_tpu_torch.utils.profiling import count, span
 
 # loaders that emit lr == hr: their noise is synthesized downstream
 _SYNTHETIC = ("NF_Syn_Dataset", "Proxy_Dataset", "IMX686_NF_Syn_Dataset",
@@ -69,22 +70,65 @@ class NoiseStep:
     (:func:`~pnnp_tpu_torch.parallel.make_sharded_noise_step`) averages the
     gradients between them, before the clip. Metrics are detached 0-dim
     tensors, ``lr`` a float. While tracing is on, the loss and its backward
-    are device spans ``<kind>.forward`` and ``<kind>.backward``."""
+    are device spans ``<kind>.forward`` and ``<kind>.backward``.
+
+    A step whose ``loss_fn`` is ``capturable`` (one that syncs nothing with
+    the host and reads no tensor's value on it) replays its forward and its
+    backward as two CUDA graphs (:class:`_StepGraphs`) where it can: float32
+    CUDA inputs that do not require grad, float32 parameters on their
+    device, and a model whose masked means are its own (``data_mean`` unset:
+    one data rank). The first call at an input key (shapes, dtypes, device,
+    parameters) runs eagerly as the warm-up, the second captures the graphs
+    and replays them, and every later call replays them; anything else runs
+    eagerly. The counters ``<kind>.graph_captures``, ``<kind>.graph_replays``
+    and ``<kind>.graph_eager`` count them. Adam stays eager."""
 
     def __init__(self, model, loss_fn, lr_schedule, clip_norm: Optional[float] = None,
-                 kind: str = "proxy"):
+                 kind: str = "proxy", capturable: bool = False):
         self.model, self.loss_fn = model, loss_fn
         self.lr_schedule, self.clip_norm = lr_schedule, clip_norm
+        self.kind, self.capturable = kind, capturable
         self.spans = (f"{kind}.forward", f"{kind}.backward")
+        self._graphs: dict = {}   # input key -> _StepGraphs, or None after the warm-up
 
     def forward_backward(self, opt, lr_img, hr_img, ratio, iso) -> dict:
         opt.zero_grad(set_to_none=True)
+        inputs = (lr_img, hr_img, ratio, iso)
+        graphs = self._graphed(inputs)
+        if graphs is None:
+            count(f"{self.kind}.graph_eager")
+            with span(self.spans[0], device=True):
+                loss, metrics = self.loss_fn(*inputs)
+            # the proxy's backward recomputes each checkpointed chunk of its density
+            with span(self.spans[1], device=True):
+                loss.backward()
+            return {k: v.detach() for k, v in metrics.items()}
+        count(f"{self.kind}.graph_replays")
         with span(self.spans[0], device=True):
-            loss, metrics = self.loss_fn(lr_img, hr_img, ratio, iso)
-        # the proxy's backward recomputes each checkpointed chunk of its density
+            graphs.forward(inputs)
         with span(self.spans[1], device=True):
-            loss.backward()
-        return {k: v.detach() for k, v in metrics.items()}
+            graphs.backward()
+        return graphs.metrics()
+
+    def _graphed(self, inputs):
+        """The graphs that replay this call, captured here at the second
+        call at its key; ``None`` where the call runs eagerly."""
+        if not (self.capturable and getattr(self.model, "data_mean", None) is None
+                and _graph_inputs(inputs)):
+            return None
+        params = list(self.model.parameters())
+        key = (tuple((t.shape, t.dtype) for t in inputs), inputs[0].device,
+               tuple(p.data_ptr() for p in params))
+        if key not in self._graphs:
+            self._graphs[key] = None  # this call is the warm-up
+            return None
+        if self._graphs[key] is None:
+            if not all(p.dtype == torch.float32 and p.device == inputs[0].device
+                       for p in params):
+                return None
+            self._graphs[key] = _StepGraphs(self.model, self.loss_fn, inputs)
+            count(f"{self.kind}.graph_captures")
+        return self._graphs[key]
 
     def update(self, opt, epoch) -> float:
         lr = float(self.lr_schedule(epoch))
@@ -94,6 +138,58 @@ class NoiseStep:
     def __call__(self, opt, lr_img, hr_img, ratio, iso, epoch) -> dict:
         metrics = self.forward_backward(opt, lr_img, hr_img, ratio, iso)
         return {**metrics, "lr": self.update(opt, epoch)}
+
+
+def _graph_inputs(inputs) -> bool:
+    """The inputs a graph takes: float32 tensors on one CUDA device that do
+    not require grad."""
+    dev = getattr(inputs[0], "device", None)
+    return all(isinstance(t, torch.Tensor) and t.is_cuda and t.device == dev
+               and t.dtype == torch.float32 and not t.requires_grad for t in inputs)
+
+
+class _StepGraphs:
+    """A :class:`NoiseStep`'s forward and backward at one input key as two
+    CUDA graphs, laid out as ``torch.cuda.make_graphed_callables`` lays
+    them out: static inputs that each call copies its inputs into, the loss
+    and metrics that the forward graph writes, the gradients that the
+    backward graph writes (left in ``p.grad``, where Adam reads them), both
+    in one memory pool. Capturing runs nothing: the first replay does the
+    capturing call's arithmetic. The fused proxy kernels' launches that
+    each graph holds count at each of its replays."""
+
+    def __init__(self, model, loss_fn, inputs):
+        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in inputs]
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        # thread_local: the loader's worker threads may use CUDA meanwhile
+        with proxy_core.holding() as self.fwd_held, \
+                torch.cuda.graph(self.fwd, capture_error_mode="thread_local"):
+            loss, metrics = loss_fn(*self.inputs)
+        # the grads are unset (zero_grad(set_to_none=True)), so the backward
+        # writes fresh ones, as the eager step's does
+        with proxy_core.holding() as self.bwd_held, \
+                torch.cuda.graph(self.bwd, pool=self.fwd.pool(),
+                                 capture_error_mode="thread_local"):
+            loss.backward()
+        self.out = {k: v.detach() for k, v in metrics.items()}
+        self.grads = [(p, p.grad) for p in model.parameters() if p.grad is not None]
+
+    def forward(self, inputs) -> None:
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        self.fwd.replay()
+        proxy_core.replayed(self.fwd_held)
+
+    def backward(self) -> None:
+        self.bwd.replay()
+        proxy_core.replayed(self.bwd_held)
+        for p, g in self.grads:
+            p.grad = g
+
+    def metrics(self) -> dict:
+        """The replay's metrics, copied: the next replay overwrites the
+        graph's own."""
+        return {k: v.clone() for k, v in self.out.items()}
 
 
 def make_nf_train_step(nf, lr_schedule, clip_norm: Optional[float] = None) -> NoiseStep:
@@ -124,7 +220,8 @@ def make_proxy_train_step(proxy, lr_schedule, dark_thresh: float = 2.0,
     clean signal is below ``dark_thresh`` ADU; dark frames (clean ~ 0) get
     an all-ones mask. ``clip_norm`` clips the gradients' global norm before
     Adam (``hyper.clip_norm``). Images NCHW; metrics ``nll``, ``nll_px``,
-    ``nll_row``.
+    ``nll_row``. The loss is capturable into a CUDA graph unless the proxy
+    adds its ISO-curvature penalty, whose ISO grid is a copy from the host.
     """
     span = proxy.wp - proxy.bl
 
@@ -135,7 +232,8 @@ def make_proxy_train_step(proxy, lr_schedule, dark_thresh: float = 2.0,
         nll, aux = proxy.loss(noise, iso, weight=weight)
         return nll, {"nll": nll, **aux}
 
-    return NoiseStep(proxy, loss_fn, lr_schedule, clip_norm)
+    return NoiseStep(proxy, loss_fn, lr_schedule, clip_norm,
+                     capturable=proxy.smooth_iso_w == 0)
 
 
 class NFTrainer:
