@@ -139,15 +139,12 @@ and no result line):
    with the net it trained, over a 5-scene 2848x4256 SID fixture (3
    calibration frames, the first 2 served bf16; 3 served int8; every frame
    within 0.5 dB / 0.05 SSIM of the bf16 fused step, while the seeded init
-   scores more than 0.5 dB away; SSIM launches under ``int8``); the eval
-   sweep's pace with the loader workers pre-packing against the card
-   packing, in turns; ``--mode train`` for one epoch through the packed
-   step (launches under ``packed_train``); and the same-call A/Bs that set
-   the defaults: the bf16 fused eval step through the UNet in NCHW memory,
-   in ``channels_last`` memory (the bf16 default) and the hybrid packed form at
-   both frames, with the W8A8 step beside them; the bf16 train step at 8 x
-   512^2 ``pgrq`` through the same three; the f32 eval and train steps in
-   NCHW against ``channels_last``.
+   scores more than 0.5 dB away; SSIM launches under ``int8``); and the
+   same-call A/Bs that set the memory-format defaults: the bf16 fused eval
+   step through the UNet in NCHW memory and in ``channels_last`` memory (the
+   bf16 default) at both frames, with the W8A8 step beside them; the bf16
+   train step at 8 x 512^2 ``pgrq`` through the same two; the f32 eval and
+   train steps in NCHW against ``channels_last``.
 
 14. several devices (ROADMAP 1.16, ``phase_multidevice``): 2 ``gloo``
    ranks, spawned, both on cuda:0 (NCCL refuses two ranks on one card;
@@ -174,7 +171,7 @@ and no result line):
    ``SdnModelScale`` on the card against the CPU on one seeded batch
    (``bijector_card_check``, beside phase 9's flow check: within 1e-5 of
    the largest CPU magnitude); ``pnnp_tpu_torch/tools/eval_fullres.py`` in
-   its default, ``--packed`` and ``--int8`` modes at both frames, 2 frames
+   its default and ``--int8`` modes at both frames, 2 frames
    chained (SSIM launches under ``fullres``), one of its Sony frames
    recomputed by the plain SSIM and PSNR, and ``tools/bench_eval_loop.py``
    over 4 Sony frames, sync and pipelined (launches under ``eval_loop``),
@@ -226,10 +223,10 @@ and no result line):
    prefix within 10% of its one-piece anchor, each band's marginal above -5%
    of it, the ``channels_last`` anchor at or below phase 12's bf16 eval step;
    no layer above 105% of the dense bf16 peak; each ablated forward at or
-   below 105% of the base; ``profile_proxy_step`` in both forms at 8 x 512^2,
-   d=1024 (``step`` within 10% of an independent median of the same call,
-   the ``channels_last`` physics control within 10% of phase 12's bf16
-   ``pgrq`` step, each marginal above -5% of ``step``);
+   below 105% of the base; ``profile_proxy_step`` at 8 x 512^2, d=1024
+   (``step`` within 10% of an independent median of the same call, the
+   physics control within 10% of phase 12's bf16 ``pgrq`` step, each
+   marginal above -5% of ``step``);
    ``profile_proxy_synth`` (dot-vs-gather within 2e-3, the rebuilt ``full``
    sample equal to the module's); ``bench_halfdense`` (its bf16 error
    within 4x the dense hybrid's, both against the f32 hybrid);
@@ -265,7 +262,7 @@ raw Sony frame; ``ssim_generic`` the route of ``rgb_quality``, timed at the
 sRGB Sony frame; each with ``by_shape``, its time, bound and share at every
 frame phase 12 times it; ``launches`` sums the eval,
 the train, the PNNP, the four baseline, the two NF.yml, the rgb, unfused,
-LED, predict, int8 and packed-train runs, the two ranks' ``sharded``
+LED, predict and int8 runs, the two ranks' ``sharded``
 path, phase 15's ``fullres`` and ``eval_loop`` runs and phase 19's
 ``golden`` sweeps;
 ``launches_by_path`` keeps each; and a ``proxy_core`` row, phase 21's: its
@@ -2820,42 +2817,6 @@ def phase_packed_checks(dev):
             "int8_forward_card_vs_cpu": int8_err, "int8_codes_flipped": [flipped, total]}
 
 
-class _Prepacked:
-    """An eval data set whose frames come pre-packed on the host
-    (``pack_frame_np``: %16 reflect pad + s2d) by the loader worker that
-    loads them: the host arm of the sweep-pace A/B."""
-
-    def __init__(self, ds):
-        self.ds = ds
-
-    def __len__(self):
-        return len(self.ds)
-
-    def __getitem__(self, i):
-        from pnnp_tpu_torch.models.unet_s2d import pack_frame_np
-
-        item = self.ds[i]
-        item["lr"] = pack_frame_np(item["lr"])
-        return item
-
-
-def _sweep_ms(trainer, ds, workers):
-    """ms per frame of the fused eval sweep's loop over ``ds``: the loader
-    (``workers`` processes), the frames to the card, the trainer's fused
-    bf16 step, each frame's metrics read back."""
-    from pnnp_tpu_torch.data import DataLoader
-
-    loader = DataLoader(ds, batch_size=1, shuffle=False, num_workers=workers)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for batch in loader:
-        lr, hr = trainer._to_device(batch["lr"]), trainer._to_device(batch["hr"])
-        _, m = trainer._fused_eval(lr, hr, float(np.asarray(batch["ratio"]).reshape(-1)[0]))
-        float(m["psnr"])
-    torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0) / len(ds)
-
-
 def phase_int8_eval(dev, ckpt):
     """``trainer.main --mode eval --int8`` on a 5-scene 2848x4256 SID fixture
     (ELD.yml's Sony values) with ``ckpt``, the nf=32 net that
@@ -2863,19 +2824,15 @@ def phase_int8_eval(dev, ckpt):
     first 2 served bf16), frames 3-5 are served int8; every frame's PSNR /
     SSIM held to the bf16 fused step's on the same frame, and the bf16 PSNR
     shown to move by more than that bar when the trained weights give way
-    to the seeded init. Then the eval sweep's pace with the loader workers
-    pre-packing the frames and with the card packing them, in turns; then
-    ``--mode train`` for one epoch through the packed step on the same
-    fixture. Returns (launches by path, what was checked)."""
+    to the seeded init. Returns (launches by path, what was checked)."""
     import pnnp_tpu_torch.trainer as T
-    from pnnp_tpu_torch.data.fixtures import make_sid_fixture, place_eval_split
-    from pnnp_tpu_torch.models import UNetSeeInDark, params_to_jax
-    from pnnp_tpu_torch.train import TrainStep
+    from pnnp_tpu_torch.data.fixtures import make_sid_fixture
+    from pnnp_tpu_torch.models import UNetSeeInDark
     from pnnp_tpu_torch.train.steps import make_eval_metrics_step
 
     out, launches = {}, {}
     with tempfile.TemporaryDirectory(prefix="pnnp_int8_") as root:
-        infos = make_sid_fixture(root, n_scenes=INT8_SCENES, H=MOSAIC_H, W=MOSAIC_W)
+        make_sid_fixture(root, n_scenes=INT8_SCENES, H=MOSAIC_H, W=MOSAIC_W)
         run = _smoke_runfile(root)
         os.makedirs(run["fast_ckpt"], exist_ok=True)
         shutil.copy(ckpt, os.path.join(run["fast_ckpt"], f"{run['model_name']}_best_model.ckpt"))
@@ -2923,55 +2880,7 @@ def phase_int8_eval(dev, ckpt):
         print(f"--int8 eval: {INT8_SCENES} frames in {c.wall:.2f} s, served int8 {served}, "
               f"launches {c.launches}; int8 - bf16 per frame {gaps}; bf16 PSNR trained - "
               f"seeded init {moved}", flush=True)
-        del seeded
-
-        # --- the eval sweep's pace: host pre-pack against the card ---------
-        tr.dataset_eval.change_eval_ratio(100)
-        arms = {"card": (tr.dataset_eval, 2), "host": (_Prepacked(tr.dataset_eval), 3)}
-        pace = {a: [] for a in arms}
-        for a in ("card", "host", "host", "card"):
-            pace[a].append(_sweep_ms(tr, *arms[a]))
-        out["sweep_pace_ms_per_frame"] = dict(pace, frames=INT8_SCENES)
-        print(f"eval sweep pace, ms per frame over {INT8_SCENES} frames (card pack, "
-              f"2 workers / host pre-pack, 3 workers): {pace}", flush=True)
-
-        # --- one --mode train epoch through the packed step ----------------
-        place_eval_split(root, infos, 250)
-        run_t = _train_runfile(root)
-        run_t["hyper"]["stop_epoch"] = 1
-        losses, packed_steps = [], []
-        call = TrainStep.__call__
-
-        def step_spy(self, model, opt, batch, gen, epoch):
-            packed_steps.append(self.packed)
-            m = call(self, model, opt, batch, gen, epoch)
-            losses.append(float(m["loss"]))
-            return m
-
-        TrainStep.__call__, T.Trainer.packed_step = step_spy, True
-        try:
-            tt, mt, c = _eval_entry(T.main, run_t, root, ["--mode", "train", "--nofig"],
-                                    frames=INT8_SCENES)
-        finally:
-            TrainStep.__call__, T.Trainer.packed_step = call, False
-        launches["packed_train"] = c.launches
-        _check("aborted by RuntimeError" not in "\n".join(c.lines), "a packed epoch aborted")
-        _check(tt._use_packed and packed_steps == [True] * INT8_SCENES
-               and all(math.isfinite(x) for x in losses),
-               f"packed train: steps {packed_steps}, losses {losses}")
-        init = params_to_jax(UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(
-            tt.seed)).state_dict())
-        now = params_to_jax(tt.model.state_dict())
-        moved = max(float(np.abs(now[n][k] - init[n][k]).max()) for n in init for k in init[n])
-        _check(moved > 0.1 * TRAIN_LR, f"packed train: params moved by {moved}")
-        _check(c.launches["by_route"]["hopper"] == c.launches["ssim"] == 2 * INT8_SCENES,
-               f"packed train: SSIM launches {c.launches}")
-        out["packed_train"] = {"losses": losses, "params_moved": moved, "wall_s": c.wall,
-                               "epoch_lines": [ln for ln in c.lines if ": loss ok," in ln]}
-        print(f"packed train: --mode train, {len(losses)} packed steps + {2 * INT8_SCENES} eval "
-              f"frames in {c.wall:.2f} s; losses {[round(x, 5) for x in losses]}; params moved "
-              f"by up to {moved:.2e}; launches {c.launches}", flush=True)
-        del tr, tt
+        del seeded, tr
     torch.cuda.empty_cache()
     return launches, out
 
@@ -2991,24 +2900,19 @@ _ARM_FORMAT = {"nchw": torch.contiguous_format, "nchw_cl": torch.channels_last,
 
 
 def phase_packed_timings(dev, batch):
-    """The same-call A/Bs that set the port's packed and memory-format
-    defaults, and the int8 eval step: the bf16 fused eval step at the Sony
-    and IMX686 frames through the UNet in NCHW memory, in ``channels_last``
-    memory (the steps' bf16 default) and the hybrid packed form (median of 10 after 3
-    warm-ups each, arms in turns, a profile of each), the W8A8 step
-    (calibrated on the frame itself, pct 99.95); the bf16 train step at
-    8 x 512^2 ``pgrq`` on the main path's batch through the same three forms
-    (in turns, split, profiled). Beside them the f32 eval and train steps in
-    NCHW against ``channels_last`` memory."""
+    """The same-call A/Bs that set the port's memory-format defaults, and
+    the int8 eval step: the bf16 fused eval step at the Sony and IMX686
+    frames through the UNet in NCHW memory and in ``channels_last`` memory
+    (the steps' bf16 default) (median of 10 after 3 warm-ups each, arms in
+    turns, a profile of each), the W8A8 step (calibrated on the frame
+    itself, pct 99.95); the bf16 train step at 8 x 512^2 ``pgrq`` on the
+    main path's batch in the same two formats (in turns, split, profiled).
+    Beside them the f32 eval and train steps in NCHW against
+    ``channels_last`` memory."""
     import pnnp_tpu_torch.models.unet_s2d_int8 as PI
     from pnnp_tpu_torch.models import UNetSeeInDark
     from pnnp_tpu_torch.models.unet_s2d import s2d
-    from pnnp_tpu_torch.train import (
-        make_adam,
-        make_raw_synth,
-        make_raw_synth_packed,
-        make_train_step,
-    )
+    from pnnp_tpu_torch.train import HybridParams, make_adam, make_raw_synth, make_train_step
     from pnnp_tpu_torch.train.steps import make_eval_metrics_step, pad_to_multiple
 
     out = {"eval": {}, "train": {}}
@@ -3017,21 +2921,21 @@ def phase_packed_timings(dev, batch):
         lr = torch.from_numpy(rng.uniform(0, 0.4, (1, h, w * 4)).astype(np.float32)).to(dev)
         hr = torch.from_numpy(rng.uniform(0, 1, (1, h, w * 4)).astype(np.float32)).to(dev)
         # the arms: the module forward in NCHW and in channels_last memory
-        # (the bf16 default), in bf16 and, beside them, in f32 (TF32 off)
+        # (the bf16 default), in bf16 and, beside them, in f32 (TF32 off);
+        # the int8 arm's net stays as it is made
         nets = {a: UNetSeeInDark(nf=32, dtype=torch.float32 if a.startswith("f32") else
                                  torch.bfloat16, generator=torch.Generator().manual_seed(0)
                                  ).to(dev).eval()
-                for a in ("nchw", "nchw_cl", "packed", "f32_nchw", "f32_cl")}
-        steps = {a: make_eval_metrics_step(net, packed=a == "packed",
-                                           memory_format=_ARM_FORMAT.get(a))
-                 for a, net in nets.items()}
+                for a in ("nchw", "nchw_cl", "int8", "f32_nchw", "f32_cl")}
+        steps = {a: make_eval_metrics_step(net, memory_format=_ARM_FORMAT[a])
+                 for a, net in nets.items() if a != "int8"}
         g1 = s2d(pad_to_multiple(lr.reshape(1, h, w, 4), 16)[0].permute(0, 3, 1, 2))
-        tp = steps["packed"].tparams()
+        tp = HybridParams(nets["int8"])()
         qp = PI.quantize_params_int8(tp, PI.calibrate_act_scales(tp, [g1], pct=99.95))
-        steps["int8"] = make_eval_metrics_step(nets["packed"], qparams=qp)
+        steps["int8"] = make_eval_metrics_step(nets["int8"], qparams=qp)
         correct = frame == "sony"  # the IMX686 evals are uncorrected
         calls = {a: (lambda s=s: s(lr, hr, 1.0, correct=correct)) for a, s in steps.items()}
-        ab = _in_turns(("nchw", "nchw_cl", "packed"),
+        ab = _in_turns(("nchw", "nchw_cl"),
                        lambda a: _time_ms(calls[a], warmup=3, iters=10))
         ab.update(_in_turns(("f32_nchw", "f32_cl"),
                             lambda a: _time_ms(calls[a], warmup=3, iters=10)))
@@ -3042,7 +2946,6 @@ def phase_packed_timings(dev, batch):
         base = ab["nchw"]["mean"]
         out["eval"][frame] = {
             "frame": [1, h, w, 4], "ms": ab, "metrics": m,
-            "packed_vs_nchw": ab["packed"]["mean"] / base,
             "nchw_cl_vs_nchw": ab["nchw_cl"]["mean"] / base,
             "int8_vs_nchw": ab["int8"]["mean"] / base,
             "f32_cl_vs_f32_nchw": ab["f32_cl"]["mean"] / ab["f32_nchw"]["mean"],
@@ -3059,25 +2962,21 @@ def phase_packed_timings(dev, batch):
         torch.cuda.empty_cache()
 
     arms = {}
-    for a in ("nchw", "nchw_cl", "packed", "f32_nchw", "f32_cl"):
-        packed = a == "packed"
+    for a in ("nchw", "nchw_cl", "f32_nchw", "f32_cl"):
         net = UNetSeeInDark(nf=32, generator=torch.Generator().manual_seed(0)).to(dev)
-        synth = (make_raw_synth_packed if packed else make_raw_synth)("SonyA7S2", "pgrq",
-                                                                      ori=False, clip=True)
+        synth = make_raw_synth("SonyA7S2", "pgrq", ori=False, clip=True)
         step = make_train_step(lambda e: TRAIN_LR, synth, clip_mode=True,
-                               bf16=not a.startswith("f32"), packed=packed,
-                               memory_format=_ARM_FORMAT.get(a))
+                               bf16=not a.startswith("f32"), memory_format=_ARM_FORMAT[a])
         arms[a] = (net, make_adam(net.parameters()), step,
                    torch.Generator(device=dev).manual_seed(0))
     call = lambda a: arms[a][2](arms[a][0], arms[a][1], batch, arms[a][3], 1)
-    ab = _in_turns(("nchw", "nchw_cl", "packed"),
+    ab = _in_turns(("nchw", "nchw_cl"),
                    lambda a: _time_ms(lambda: call(a), warmup=3, iters=10))
     ab.update(_in_turns(("f32_nchw", "f32_cl"),
                         lambda a: _time_ms(lambda: call(a), warmup=3, iters=10)))
     split = {a: _split_ms(arms[a][2], arms[a][0], arms[a][1], batch, arms[a][3]) for a in arms}
     prof = {a: _profile(lambda a=a: call(a), ab[a]["mean"]) for a in arms}
     out["train"] = {"batch": list(batch["hr"].shape), "ms": ab, "split_ms": split,
-                    "packed_vs_nchw": ab["packed"]["mean"] / ab["nchw"]["mean"],
                     "nchw_cl_vs_nchw": ab["nchw_cl"]["mean"] / ab["nchw"]["mean"],
                     "f32_cl_vs_f32_nchw": ab["f32_cl"]["mean"] / ab["f32_nchw"]["mean"],
                     "by_class_ms": {a: p["by_class_ms"] for a, p in prof.items()},
@@ -3087,13 +2986,13 @@ def phase_packed_timings(dev, batch):
           + f"; split {split}", flush=True)
     del arms
     torch.cuda.empty_cache()
-    # the decision rule of the defaults: another form replaces the NCHW one
-    # only where it is faster by more than the call-to-call spread
+    # the decision rule of the defaults: another format replaces NCHW only
+    # where it is faster by more than the call-to-call spread
     wins = lambda r: r < 1 - AB_SPREAD
     out["wins_over_nchw"] = {
-        **{f"eval_{f}": {a: wins(out["eval"][f][f"{a}_vs_nchw"]) for a in ("nchw_cl", "packed")}
+        **{f"eval_{f}": {"nchw_cl": wins(out["eval"][f]["nchw_cl_vs_nchw"])}
            for f in out["eval"]},
-        "train": {a: wins(out["train"][f"{a}_vs_nchw"]) for a in ("nchw_cl", "packed")},
+        "train": {"nchw_cl": wins(out["train"]["nchw_cl_vs_nchw"])},
         "f32_cl": {k: wins(v["f32_cl_vs_f32_nchw"])
                    for k, v in [*out["eval"].items(), ("train", out["train"])]}}
     print(f"A/B decisions (faster than NCHW by more than {AB_SPREAD:.0%}): "
@@ -3507,7 +3406,7 @@ def bijector_card_check(dev):
 
 def phase_tools(dev):
     """ROADMAP 1.17 on the card, in this process: ``eval_fullres`` in its
-    default, ``--packed`` and ``--int8`` modes at ``FULLRES_FRAMES`` frames
+    default and ``--int8`` modes at ``FULLRES_FRAMES`` frames
     (the fused step's SSIM launches counted under ``fullres``), one Sony
     frame of its default step with the SSIM recomputed by the plain version,
     and ``bench_eval_loop`` at ``EVAL_LOOP_ARGS`` (under ``eval_loop``).
@@ -3519,20 +3418,20 @@ def phase_tools(dev):
     t0 = time.perf_counter()
     launches, out = {}, {"eval_fullres": {}}
     with _Counted() as c:
-        for mode, flags in (("default", []), ("packed", ["--packed"]), ("int8", ["--int8"])):
+        for mode, flags in (("default", []), ("int8", ["--int8"])):
             rows = eval_fullres.main(["--frames", str(FULLRES_FRAMES)] + flags, device=dev)
             _check(len(rows) == 2 and all(math.isfinite(r["metric_sum"]) and r["ms_per_frame"] > 0
                                           for r in rows), f"eval_fullres {mode}: {rows}")
             out["eval_fullres"][mode] = rows
     launches["fullres"] = c.launches
-    want = 3 * len(eval_fullres.SHAPES) * (1 + eval_fullres.REPEATS) * FULLRES_FRAMES
+    want = 2 * len(eval_fullres.SHAPES) * (1 + eval_fullres.REPEATS) * FULLRES_FRAMES
     _check(c.launches["by_route"]["hopper"] == c.launches["ssim"] == want,
            f"eval_fullres: SSIM launches {c.launches}, not {want} hopper")
 
     # one Sony frame of the default step, its metrics by the plain versions
     net = UNetSeeInDark(nf=32, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(
         eval_fullres.MODEL_SEED)).to(dev).eval()
-    frames, hr = eval_fullres.make_frames(MOSAIC_H // 2, MOSAIC_W // 2, 1, "default", dev)
+    frames, hr = eval_fullres.make_frames(MOSAIC_H // 2, MOSAIC_W // 2, 1, dev)
     dnf, m = eval_fullres.build_step(net, "default")(frames[0], hr, 1.0, correct=True)
     H = hr.shape[1]
     hrc = hr[0].clamp(0, 1).reshape(H, -1)
@@ -3554,7 +3453,7 @@ def phase_tools(dev):
            f"bench_eval_loop: rows {rows}, SSIM launches {c.launches}, not {want} hopper")
     out["bench_eval_loop"] = rows
     out["wall_s"] = time.perf_counter() - t0
-    print(f"tools: eval_fullres x3 modes and bench_eval_loop in {out['wall_s']:.1f} s; "
+    print(f"tools: eval_fullres x2 modes and bench_eval_loop in {out['wall_s']:.1f} s; "
           f"launches {launches}; frame vs plain {out['frame_vs_plain']}", flush=True)
     for mode, rows in out["eval_fullres"].items():
         print(f"eval_fullres {mode}: " + "; ".join(
@@ -3854,15 +3753,15 @@ HALFDENSE_ERR = 4.0  # the half-dense bf16 error, as a multiple of the dense hyb
 INT8_REL_ERR = 0.08  # int8 frames against bf16 (tests/test_unet_s2d_int8.py's random-weight bar)
 
 
-def _profile_step_check(dev, form, step_ms):
+def _profile_step_check(dev, step_ms):
     """An independent CUDA-event median of the ``TrainStep`` call that
     ``profile_proxy_step`` times as its ``step`` prefix."""
     from pnnp_tpu_torch.tools import profile_proxy_step
 
-    s = profile_proxy_step.build(form, PROXY_D, False, dev)
+    s = profile_proxy_step.build(PROXY_D, False, dev)
     ms = _time_ms(lambda: s.step(s.net, s.opt, s.batch, s.gen, 1), warmup=3, iters=10)
     _check(abs(step_ms - ms) <= ANCHOR_TOL * ms,
-           f"profile_proxy_step {form}: step prefix {step_ms} ms, the step alone {ms} ms")
+           f"profile_proxy_step: step prefix {step_ms} ms, the step alone {ms} ms")
     return ms
 
 
@@ -3877,10 +3776,10 @@ def phase_profile_tools(dev, eval_ms, train_ms):
     ``profile_layers``, no layer above ``PEAK_CEIL`` of the dense bf16 peak
     (a higher reading is a wrong timing; the sum of parts is printed beside
     the anchor, not held); ``profile_ablate``, each ablated forward at or
-    below ``ABLATE_CEIL`` of the base; ``profile_proxy_step`` in both forms,
-    ``step`` within ``ANCHOR_TOL`` of an independent median of the same call,
-    each marginal above ``MARGINAL_FLOOR`` of it, and in ``channels_last``
-    the physics control within ``ANCHOR_TOL`` of ``train_ms``;
+    below ``ABLATE_CEIL`` of the base; ``profile_proxy_step``, ``step``
+    within ``ANCHOR_TOL`` of an independent median of the same call, each
+    marginal above ``MARGINAL_FLOOR`` of it, and the physics control within
+    ``ANCHOR_TOL`` of ``train_ms``;
     ``profile_proxy_synth``, the dot-vs-gather error within its bf16 bound
     and the rebuilt ``full`` sample equal to the module's within 1e-6 of its
     max on the same generator state; ``bench_halfdense``, the half-dense bf16
@@ -3926,18 +3825,19 @@ def phase_profile_tools(dev, eval_ms, train_ms):
         abl = profile_ablate.main(args, device=dev)
         _check(all(r["ms"] <= ABLATE_CEIL * abl["base_ms"] for r in abl["rows"]),
                f"profile_ablate {form}: {abl}")
-        step = profile_proxy_step.main(PROFILE_STEP_ARGS + ["--form", form], device=dev)
-        cum = {r["prefix"]: r["cum_ms"] for r in step["rows"]}
-        alone = _profile_step_check(dev, form, cum["step"])
-        _check(all(r["marginal_ms"] > MARGINAL_FLOOR * cum["step"] for r in step["rows"])
-               and (form == "packed"
-                    or abs(step["physics_step_ms"] - train_ms) <= ANCHOR_TOL * train_ms),
-               f"profile_proxy_step {form}: {step}, pgrq train step {train_ms} ms")
-        print(f"profile_proxy_step {form}: step {cum['step']:.3f} ms (alone {alone:.3f}), "
-              f"physics {step['physics_step_ms']:.3f} ms (phase 12: {train_ms:.3f})", flush=True)
-        out[form] = {"prefix": pre, "forward_profile": prof, "layers": lay, "ablate": abl,
-                     "proxy_step": dict(step, step_alone_ms=alone)}
+        out[form] = {"prefix": pre, "forward_profile": prof, "layers": lay, "ablate": abl}
         torch.cuda.empty_cache()
+
+    step = profile_proxy_step.main(PROFILE_STEP_ARGS, device=dev)
+    cum = {r["prefix"]: r["cum_ms"] for r in step["rows"]}
+    alone = _profile_step_check(dev, cum["step"])
+    _check(all(r["marginal_ms"] > MARGINAL_FLOOR * cum["step"] for r in step["rows"])
+           and abs(step["physics_step_ms"] - train_ms) <= ANCHOR_TOL * train_ms,
+           f"profile_proxy_step: {step}, pgrq train step {train_ms} ms")
+    print(f"profile_proxy_step: step {cum['step']:.3f} ms (alone {alone:.3f}), "
+          f"physics {step['physics_step_ms']:.3f} ms (phase 12: {train_ms:.3f})", flush=True)
+    out["proxy_step"] = dict(step, step_alone_ms=alone)
+    torch.cuda.empty_cache()
 
     synth = profile_proxy_synth.main(PROFILE_FORWARD_ARGS, device=dev)
     proxy, clean = profile_proxy_synth.setup(256, 8, False, dev)
@@ -4086,8 +3986,8 @@ def main() -> int:
     # one row per SSIM route: the main path's (hopper) and the first version
     # (generic, rgb_quality's route); launches of each path's run (the eval
     # run, the train run's, the PNNP run's, the baseline runs' and the NF.yml
-    # runs' eval legs, the rgb, unfused, LED and predict runs, the int8 and
-    # packed-train runs, the ranks' sharded path, eval_fullres's three modes,
+    # runs' eval legs, the rgb, unfused, LED and predict runs, the int8
+    # run, the ranks' sharded path, eval_fullres's two modes,
     # bench_eval_loop and golden_parity's two sweeps) and their sum
     by_path = {"eval": launches, "train": train_launches, "pnnp": pnnp_launches,
                **base_launches, **flow_launches, **eval_launches, **int8_launches,

@@ -1,10 +1,9 @@
 """ctypes bindings for the native host loader (native/rawproc.cpp).
 
-Copy of ``pnnp_tpu/data/native.py``: the repo's ``native/librawproc.so``
+Counterpart of ``pnnp_tpu/data/native.py``: the repo's ``native/librawproc.so``
 fuses dark-shading subtraction + black-level normalize + RGGB pack into one
-pass over a full frame (:func:`pack_full`), over a plan of crops with their
-augmentations (:func:`pack_crops`), or straight into the packed forms'
-4x4-superpixel layout (:func:`pack_s2d`). Callers fall back to the NumPy
+pass over a full frame (:func:`pack_full`) or over a plan of crops with their
+augmentations (:func:`pack_crops`). Callers fall back to the NumPy
 path (``data.io.pack_raw_np``) when the shared library is unavailable (not
 built with ``make -C native``, or built for another host).
 """
@@ -54,7 +53,6 @@ def load_library(build: bool = True):
     signatures = {
         "pnnp_pack_full": head + [i, f32p],
         "pnnp_pack_crops": head + [i32p, i32p, i32p, i, i, i, f, f32p],
-        "pnnp_pack_s2d": head + [i, f32p],
     }
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
@@ -123,24 +121,5 @@ def pack_crops(raw: np.ndarray, wp: float, bl: float,
         ctypes.c_float(wp), ctypes.c_float(bl), _float_ptr(b),
         i32p(hs), i32p(ws), i32p(aug), ctypes.c_int(n), ctypes.c_int(patch),
         ctypes.c_int(clip_mode), ctypes.c_float(ratio_mul), _float_ptr(out),
-    )
-    return out
-
-
-def pack_s2d(raw: np.ndarray, wp: float, bl: float, darkshading=None,
-             bias=None, clip: bool = False) -> np.ndarray:
-    """Fused pack straight into the packed forms' 4x4-superpixel layout:
-    mosaic ``[H, W]`` -> NHWC-order ``[H/4, W/4, 16]``, equal to
-    ``models.unet_s2d.s2d_np`` of the RGBG packing."""
-    lib = _require_lib()
-    raw = np.ascontiguousarray(raw, np.float32)
-    H, W = raw.shape
-    out = np.empty((H // 4, W // 4, 16), np.float32)
-    ds = None if darkshading is None else np.ascontiguousarray(darkshading, np.float32)
-    b = None if bias is None else np.ascontiguousarray(bias, np.float32)
-    lib.pnnp_pack_s2d(
-        _float_ptr(raw), ctypes.c_int(H), ctypes.c_int(W), _float_ptr(ds),
-        ctypes.c_float(wp), ctypes.c_float(bl), _float_ptr(b),
-        ctypes.c_int(1 if clip else 0), _float_ptr(out),
     )
     return out

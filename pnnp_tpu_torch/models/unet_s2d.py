@@ -15,12 +15,9 @@ groups the four 2x2 sub-positions in JAX's group-major order
   * the 1x1 head is block-diagonal over the groups.
 
 Layouts are the port's: NCHW-logical tensors, a packed frame ``[N, 16, h, w]``
-in ``channels_last`` memory, so that the host's NHWC numpy frame
-``[N, h, w, 16]`` (:func:`pack_frame_np`) becomes it by a permute, with no
-copy. Weights stay in torch's layouts (``nn.Conv2d`` OIHW,
-``nn.ConvTranspose2d`` ``[I, O, kh, kw]``); every transform here is an
-index gather or an einsum of them, so it is differentiable and the packed
-train step's gradients land on the standard parameters.
+in ``channels_last`` memory. Weights stay in torch's layouts (``nn.Conv2d``
+OIHW, ``nn.ConvTranspose2d`` ``[I, O, kh, kw]``); every transform here is an
+index gather or an einsum of them, so it is differentiable.
 
 The convolutions stay on cuDNN, as the JAX package leaves them to XLA: no
 hand kernel is owed here (the JAX module has no Pallas kernel).
@@ -28,7 +25,7 @@ hand kernel is owed here (the JAX module has no Pallas kernel).
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -78,47 +75,6 @@ def d2s_np(g):
     x = g.reshape(n, h, w, 2, 2, c)
     x = np.ascontiguousarray(x.transpose(0, 1, 3, 2, 4, 5))
     return x.reshape(n, 2 * h, 2 * w, c)
-
-
-def pack_frame_sharded_np(x, nsp: int, halo: int = 96, mult: int = 16):
-    """Host pre-pack for a width-sharded eval over ``nsp`` devices: pads
-    ``[N, H, W, 4]`` symmetrically (reflect) to ``%mult`` rows and
-    ``%(mult*nsp)`` columns, packs with :func:`s2d_np`, and returns the two
-    packed edge-reflect halo blocks (``halo`` unpacked columns each) the
-    edge shards need: ``(g, halo_left, halo_right)``. Pure numpy."""
-    from pnnp_tpu_torch.train.steps import pad_split
-
-    assert halo % 2 == 0, halo
-    H, W = x.shape[1], x.shape[2]
-    pt, pb = pad_split(H, mult)
-    pl, pr = pad_split(W, mult * nsp)
-    xp = np.asarray(x)
-    if pt or pb or pl or pr:
-        xp = np.pad(xp, ((0, 0), (pt, pb), (pl, pr), (0, 0)), mode="reflect")
-    g = s2d_np(xp)
-    hl = s2d_np(np.ascontiguousarray(xp[:, :, 1:halo + 1][:, :, ::-1]))
-    hr = s2d_np(np.ascontiguousarray(xp[:, :, -halo - 1:-1][:, :, ::-1]))
-    return g, hl, hr
-
-
-def pack_frame_np(x, mult: int = 16):
-    """Symmetric-reflect-pad an NHWC ``[N, H, W, 4]`` frame to ``%mult`` and
-    s2d-pack it to ``[N, H'/2, W'/2, 16]``: the host mirror of the fused eval
-    step's ``pad + s2d`` input stage (bit-exact in f32; the pad split is
-    ``train.steps.pad_split``'s), for a host that packs frames before they
-    go to the card."""
-    H, W = x.shape[1], x.shape[2]
-    ph, pw = (-H) % mult, (-W) % mult
-    if ph or pw:
-        x = np.pad(x, ((0, 0), (ph // 2, ph - ph // 2),
-                       (pw // 2, pw - pw // 2), (0, 0)), mode="reflect")
-    return s2d_np(np.asarray(x))
-
-
-def packed_from_host(g: torch.Tensor) -> torch.Tensor:
-    """An NHWC packed frame ``[N, h, w, 16]`` (the host's layout) as the
-    port's ``[N, 16, h, w]``: a permute, no copy (``channels_last``)."""
-    return g.permute(0, 3, 1, 2)
 
 
 # ---------------------------------------------------------------------------

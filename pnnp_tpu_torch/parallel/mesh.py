@@ -45,9 +45,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from pnnp_tpu_torch.kernels.ssim import ssim_flat_sum
-from pnnp_tpu_torch.models.unet_s2d import d2s, packed_from_host, s2d
+from pnnp_tpu_torch.models.unet_s2d import d2s, s2d
 from pnnp_tpu_torch.ops.metrics import ssim_sum as ssim_sum_plain
-from pnnp_tpu_torch.train.steps import make_eval_metrics_step, pad_split
+from pnnp_tpu_torch.train.steps import make_eval_metrics_step, pad_split, refuse_packed_frame
 
 
 @dataclass
@@ -477,7 +477,7 @@ def make_eval_metrics_step_sharded(model, mesh: Mesh, halo: int = 96,
     """Width-sharded fused full-frame eval over the mesh's spatial group:
     forward, clip, illuminance correction, PSNR and SSIM, with the contract
     of :func:`~pnnp_tpu_torch.train.steps.make_eval_metrics_step`
-    (``step(lr, hr, ratio, *, ori, correct, with_inputs, halos=None)`` ->
+    (``step(lr, hr, ratio, *, ori, correct, with_inputs)`` ->
     the corrected flat frame ``[1, H, W*4]``, the metrics and, with
     ``with_inputs``, the input panel; the same on every rank).
 
@@ -504,31 +504,24 @@ def make_eval_metrics_step_sharded(model, mesh: Mesh, halo: int = 96,
     ``gather=False`` (a caller that reads only the metrics) returns ``None``
     in its place and in the input panel's.
 
-    ``lr`` may arrive host-packed at the sharded geometry
-    (:func:`~pnnp_tpu_torch.models.unet_s2d.pack_frame_sharded_np`, with its
-    edge halos as ``halos``). ``halo`` is a multiple of 8 and at least the
-    model's receptive-field radius (UNetSeeInDark: about 94). A frame too
-    narrow to shard takes the single-device step (JAX's own fallback).
+    A packed ``[.., 16]`` lr is refused, as by the single-device step.
+    ``halo`` is a multiple of 8 and at least the model's receptive-field
+    radius (UNetSeeInDark: about 94). A frame too narrow to shard takes the
+    single-device step (JAX's own fallback).
     """
     nsp = mesh.n_spatial
     if halo % 8:
         raise ValueError(f"halo {halo} is not a multiple of 8")
     fallback = make_eval_metrics_step(model, qparams=qparams)
     in_nc = getattr(model, "in_nc", 4)
-    res = bool(getattr(model, "res", False))
     if qparams is not None:
         from pnnp_tpu_torch.models.unet_s2d_int8 import unet_hybrid_forward_packed_int8
 
         tparams = fallback.tparams
-
-        def forward_packed(g1):
-            return d2s(unet_hybrid_forward_packed_int8(tparams(), qparams, g1,
-                                                       model.dtype)).float()
-
-        forward = lambda x: forward_packed(s2d(x))
+        forward = lambda x: d2s(unet_hybrid_forward_packed_int8(tparams(), qparams, s2d(x),
+                                                                model.dtype)).float()
     else:
         forward = lambda x: model(x).float()
-        forward_packed = lambda g1: forward(d2s(g1))
 
     def ssim_shard_sum(a4, b4, pl, pr, wloc):
         # a4/b4: [1, H, wloc+6, 4] in [0, 1]; this rank's share of the
@@ -585,16 +578,12 @@ def make_eval_metrics_step_sharded(model, mesh: Mesh, halo: int = 96,
                                                  else None)
 
     @torch.no_grad()
-    def step(lr, hr, ratio, *, ori=False, correct=True, with_inputs=False, halos=None,
-             gather=True):
+    def step(lr, hr, ratio, *, ori=False, correct=True, with_inputs=False, gather=True):
         if lr.dim() == 3:
             lr = lr.reshape(1, lr.shape[1], -1, 4)
         if hr.dim() == 3:
             hr = hr.reshape(1, hr.shape[1], -1, 4)
-        packed = lr.shape[-1] == 16 and in_nc == 4
-        if packed and halos is None:
-            raise ValueError("a host-packed sharded input needs its edge halos "
-                             "(pack_frame_sharded_np returns them)")
+        refuse_packed_frame(lr, in_nc)
         H, W = int(hr.shape[1]), int(hr.shape[2])
         pt, pb = pad_split(H, 16)
         pl, pr = pad_split(W, 16 * nsp)
@@ -604,30 +593,14 @@ def make_eval_metrics_step_sharded(model, mesh: Mesh, halo: int = 96,
                   and wloc >= pl + 6 and wloc >= pr + 12  # the corrections fit
                   and Wp - W < W and Hp - H < H)  # the reflect pad is legal
         if not viable:
-            if packed:  # recover the unpacked frame for the fallback
-                lr = d2s(packed_from_host(lr))[:, :, pt:pt + H, pl:pl + W].permute(0, 2, 3, 1)
             return fallback(lr, hr, ratio, ori=ori, correct=correct,
                             with_inputs=with_inputs)
         i = mesh.spatial_rank
         hr_s = _reflect_pad_nhwc(hr, pt, pb, pl, pr)[:, :, i * wloc:(i + 1) * wloc]
-        if packed:
-            # host-packed: packed halos from the neighbours (exact, the shard
-            # bounds are superpixel bounds), the edge blocks from the host
-            hc = halo // 2
-            g_s = lr[:, :, i * wloc // 2:(i + 1) * wloc // 2]
-            from_left, from_right = _ring(mesh, torch.stack([g_s[:, :, :hc],
-                                                             g_s[:, :, -hc:]]))
-            left = halos[0] if i == 0 else from_left[1]
-            right = halos[1] if i == nsp - 1 else from_right[0]
-            g1 = packed_from_host(torch.cat([left, g_s, right], dim=2))
-            dn = forward_packed(g1)
-            lr_in4 = (d2s(packed_from_host(g_s))[:, :, pt:pt + H].permute(0, 2, 3, 1)
-                      if with_inputs else None)
-        else:
-            lr_s = _reflect_pad_nhwc(lr, pt, pb, pl, pr)[:, :, i * wloc:(i + 1) * wloc]
-            slab = _halo_slab(mesh, lr_s, halo)
-            dn = forward(slab.permute(0, 3, 1, 2))
-            lr_in4 = lr_s[:, pt:pt + H] if with_inputs else None
+        lr_s = _reflect_pad_nhwc(lr, pt, pb, pl, pr)[:, :, i * wloc:(i + 1) * wloc]
+        slab = _halo_slab(mesh, lr_s, halo)
+        dn = forward(slab.permute(0, 3, 1, 2))
+        lr_in4 = lr_s[:, pt:pt + H] if with_inputs else None
         dn4 = dn[:, :, pt:pt + H, halo:-halo].permute(0, 2, 3, 1)
         r = torch.as_tensor(ratio, dtype=torch.float32, device=dn4.device).reshape(())
         dn_own, metrics, lr_own = tail(dn4, hr_s, lr_in4, r, (H, W, pt, pl, pr, wloc),

@@ -11,9 +11,8 @@ what the loop costs around it.
 The step gets what ``Trainer.eval`` feeds it: the unpacked float32 frame
 ``[1, h, w, 4]``, which it pads and forwards through the bf16 module in
 ``channels_last`` memory. The JAX tool packs each frame on the host in the
-loader (``pack_frame_np``); the port's Trainer does not, since PR 8's
-same-call A/B found the host pre-pack no faster (PERF.md section 6), so
-neither does this loop.
+loader; the port's eval steps take only unpacked frames (a host pre-pack was
+no faster on the H100, PERF.md section 6), so this loop does not pack.
 
 Modes:
   sync       read the metrics back every frame (the Trainer's behavior)

@@ -11,8 +11,6 @@ N(0, 0.02) init served in bf16, as the Trainer serves.
 Modes:
   default   the unpacked frame ``[1, h, w, 4]``, the step pads it and runs
             the module forward (bf16, ``channels_last``): the Trainer's path
-  --packed  frames packed on the host (``models/unet_s2d.py::pack_frame_np``:
-            %16 reflect pad + s2d), the step's host-packed branch
   --int8    the W8A8 packed forward (``models/unet_s2d_int8.py``), calibrated
             at maxabs on one U(0, 0.3) packed frame ``[1, 16, 712, 1064]``,
             as JAX's ``[1, 712, 1064, 16]``; metrics stay f32
@@ -25,7 +23,7 @@ frame as the Trainer does, so the pad is inside the time.
 
 Usage (from the repository root; on the card unless ``--cpu``):
 
-    python -m pnnp_tpu_torch.tools.eval_fullres [--frames 4] [--packed | --int8] [--cpu]
+    python -m pnnp_tpu_torch.tools.eval_fullres [--frames 4] [--int8] [--cpu]
 
 Prints one JSON line per shape with the JAX tool's keys (``compile_s`` is
 the first chained run's seconds: cuDNN's autotuning, no compile), plus
@@ -65,17 +63,13 @@ def build_step(model, mode: str, generator=None):
     return make_eval_metrics_step(model, qparams=qparams)
 
 
-def make_frames(h: int, w: int, K: int, mode: str, device):
-    """K lr frames U(0, 0.3) ``[1, h, w, 4]`` (host-packed for ``packed``:
-    ``[1, h'/2, w'/2, 16]``) and one hr U(0, 1), on ``device``, seeded."""
+def make_frames(h: int, w: int, K: int, device):
+    """K lr frames U(0, 0.3) ``[1, h, w, 4]`` and one hr U(0, 1), on
+    ``device``, seeded."""
     import torch
-
-    from pnnp_tpu_torch.models.unet_s2d import pack_frame_np
 
     gen = torch.Generator(device=device).manual_seed(FRAME_SEED)
     frames = [torch.rand((1, h, w, 4), generator=gen, device=device) * 0.3 for _ in range(K)]
-    if mode == "packed":
-        frames = [torch.from_numpy(pack_frame_np(f.cpu().numpy())).to(device) for f in frames]
     hr_gen = torch.Generator(device=device).manual_seed(HR_SEED)
     hr = torch.rand((1, h, w, 4), generator=hr_gen, device=device)
     return frames, hr
@@ -122,9 +116,6 @@ def time_frames(step, frames, hr, device, repeats: int = REPEATS):
 def main(argv=None, device=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=4)
-    ap.add_argument("--packed", action="store_true",
-                    help="feed host pre-packed frames (pack_frame_np) to the step's "
-                         "host-packed branch")
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 packed serving path (unet_s2d_int8); metrics stay f32")
     ap.add_argument("--cpu", action="store_true")
@@ -136,26 +127,23 @@ def main(argv=None, device=None):
     from pnnp_tpu_torch.utils.device import card_label, resolve_device
 
     dev = torch.device("cpu") if a.cpu else resolve_device(device)
-    mode = "int8" if a.int8 else ("packed" if a.packed else "default")
+    mode = "int8" if a.int8 else "default"
     model = UNetSeeInDark(nf=32, dtype=torch.bfloat16,
                           generator=torch.Generator().manual_seed(MODEL_SEED)).to(dev).eval()
     step = build_step(model, mode, torch.Generator(device=dev).manual_seed(CAL_SEED))
     card = card_label(dev)
     out = []
     for cam, H, W in SHAPES:
-        frames, hr = make_frames(H // 2, W // 2, a.frames, mode, dev)
+        frames, hr = make_frames(H // 2, W // 2, a.frames, dev)
         best, first_s, total = time_frames(step, frames, hr, dev)
         row = {
             "camera": cam,
             "mosaic": f"{H}x{W}",
-            "path": ("fused" + ("-packed-in" if mode == "packed" else "")
-                     + ("-int8" if mode == "int8" else "")),
+            "path": "fused" + ("-int8" if mode == "int8" else ""),
             "ms_per_frame": best,
             "mpix_s": H * W / 1e6 / (best / 1e3),
             "compile_s": first_s,
-            "includes": ("fused unet+clip+illum+psnr+ssim, host-packed input"
-                         if mode == "packed" else
-                         "fused pad16+unet+clip+illum+psnr+ssim (production step)"),
+            "includes": "fused pad16+unet+clip+illum+psnr+ssim (production step)",
             "frames": a.frames,
             "metric_sum": total,
             "card": card,

@@ -2,26 +2,23 @@
 (counterpart of ``tools/profile_proxy_step.py``).
 
 Times successively longer prefixes of the denoiser's train step with the
-learned proxy's noise, at the recipe geometry (8 crops of 512^2 packed RGBG,
-or 256^2 in the s2d layout; the proxy at PNNP.yml's d = 1024), beside a
+learned proxy's noise, at the recipe geometry (8 crops of 512^2 packed RGBG;
+the proxy at PNNP.yml's d = 1024), beside a
 physics-synth control at the same shapes; the marginal column says what
 each stage costs:
 
   sample     per-example ratio ~ U(100, 300), one ISO from ``LEGAL_ISO``,
              ``PixelWiseISOProxy.sample(hr / ratio, iso)``
-  synth      ``make_proxy_synth`` (lr and hr; the s2d pack where the form
-             needs it: ``pack_synth``)
+  synth      ``make_proxy_synth`` (lr and hr)
   fwd        + ``clip_lr_hr`` (HALF_CLIP) + the forward + the L1 loss
   bwd        + the backward (``TrainStep.forward_backward``), every gradient
              read by one fused norm
   step       the step as ``TrainStep`` runs it (Adam included)
 
-``--form channels_last`` (the default) profiles the step the port's trainer
-builds: ``TrainStep(bf16=True)``, autocast over f32 master params in
-``channels_last`` memory. ``--form packed`` profiles ``TrainStep(packed=True,
-bf16=True)``, the counterpart of JAX's ``fast="packed"``. The control is
-``make_raw_synth`` (``make_raw_synth_packed``) with ``pgrq`` through the same
-step. The clean crops are U(0, 0.02), as in the JAX tool.
+The step is the one the port's trainer builds: ``TrainStep(bf16=True)``,
+autocast over f32 master params in ``channels_last`` memory. The control is
+``make_raw_synth`` with ``pgrq`` through the same step. The clean crops are
+U(0, 0.02), drawn in the s2d layout and unpacked, as in the JAX tool.
 
 Timing: ``--scan`` calls of a prefix issued back to back between two CUDA
 events, each call's scalar summed into one accumulator read back once; the
@@ -31,12 +28,11 @@ the host clock with ``--cpu``). The JAX tool's flags keep their meaning:
 
 Usage (from the repository root; on the card unless ``--cpu``):
 
-    python -m pnnp_tpu_torch.tools.profile_proxy_step [--form channels_last|packed] [--d 1024] [--scan 8] [--iters 8] [--small] [--cpu]
+    python -m pnnp_tpu_torch.tools.profile_proxy_step [--d 1024] [--scan 8] [--iters 8] [--small] [--cpu]
 
 Prints one line per prefix, the control, and last the JAX tool's JSON line
 (``metric``, ``d``, ``rows`` of ``prefix`` / ``cum_ms`` / ``marginal_ms``,
-``physics_step_ms``, ``gap_ms``) with ``form`` added; :func:`main` returns
-that dict.
+``physics_step_ms``, ``gap_ms``); :func:`main` returns that dict.
 """
 
 from __future__ import annotations
@@ -49,22 +45,12 @@ from types import SimpleNamespace
 import torch
 
 from pnnp_tpu_torch.models import PixelWiseISOProxy
-from pnnp_tpu_torch.models.unet_s2d import (
-    d2s,
-    transform_params_hybrid,
-    unet_hybrid_forward_packed,
-)
+from pnnp_tpu_torch.models.unet_s2d import d2s
 from pnnp_tpu_torch.physics.calibration import HALF_CLIP, LEGAL_ISO
-from pnnp_tpu_torch.tools.profile_prefix import FORMS, autocast, calls_ms, make_net
+from pnnp_tpu_torch.tools.profile_prefix import autocast, calls_ms, make_net
 from pnnp_tpu_torch.train import make_adam
 from pnnp_tpu_torch.train.losses import unet_loss
-from pnnp_tpu_torch.train.steps import (
-    TrainStep,
-    make_proxy_synth,
-    make_raw_synth,
-    make_raw_synth_packed,
-    pack_synth,
-)
+from pnnp_tpu_torch.train.steps import TrainStep, make_proxy_synth, make_raw_synth
 from pnnp_tpu_torch.utils.device import card_label, resolve_device
 
 PREFIXES = ("sample", "synth", "fwd", "bwd", "step")
@@ -74,14 +60,9 @@ PROXY_SEED, DATA_SEED, STEP_SEED = 5, 1, 2
 
 
 def forward_loss(step: TrainStep, model, lr_img, hr_img):
-    """The step's forward and L1 loss, no backward: the packed fold and
-    forward in the step's dtype, or the module under bf16 autocast (f32
-    with ``bf16=False``)."""
+    """The step's forward and L1 loss, no backward: the module under bf16
+    autocast (f32 with ``bf16=False``)."""
     dtype = torch.bfloat16 if step.bf16 else torch.float32
-    if step.packed:
-        pred = unet_hybrid_forward_packed(transform_params_hybrid(model, dtype), lr_img,
-                                          None, dtype)
-        return unet_loss(pred, hr_img)
     with autocast(lr_img, dtype):
         return unet_loss(model(lr_img), hr_img)
 
@@ -94,11 +75,11 @@ def backward_loss(step: TrainStep, model, lr_img, hr_img):
     return loss, torch.stack(torch._foreach_norm([p.grad for p in model.parameters()])).sum()
 
 
-def build(form: str, d: int, small: bool, dev) -> SimpleNamespace:
+def build(d: int, small: bool, dev) -> SimpleNamespace:
     """The proxy's sample (d bins, seeded), the seeded nf=32 net and its
-    Adam, the proxy and the physics ``TrainStep`` of ``form``, their batches
-    and the step's generator."""
-    hw = 32 if small else 256  # the packed crops' side; the unpacked crop is 2 * hw
+    Adam, the proxy and the physics ``TrainStep``, their batch and the
+    step's generator."""
+    hw = 32 if small else 256  # the s2d draw's side; the crop is 2 * hw
     proxy = PixelWiseISOProxy(d=d, generator=torch.Generator().manual_seed(PROXY_SEED)).to(dev)
     proxy.requires_grad_(False)
 
@@ -108,18 +89,14 @@ def build(form: str, d: int, small: bool, dev) -> SimpleNamespace:
 
     g = torch.Generator(device=dev).manual_seed(DATA_SEED)
     hr_packed = torch.rand((CROPS, 16, hw, hw), generator=g, device=dev) * 0.02
-    hr = d2s(hr_packed).contiguous()  # the proxy samples in the unpacked layout
-    packed = form == "packed"
+    hr = d2s(hr_packed).contiguous()
     synth = make_proxy_synth(sample_fn, ratio_range=(100.0, 300.0))
-    phys = (make_raw_synth_packed if packed else make_raw_synth)("SonyA7S2", "pgrq",
-                                                                  ori=False, clip=False)
-    mk = lambda s: TrainStep(lambda epoch: LR, pack_synth(s) if packed else s,
-                             clip_mode=HALF_CLIP, bf16=True, packed=packed)
+    phys = make_raw_synth("SonyA7S2", "pgrq", ori=False, clip=False)
+    mk = lambda s: TrainStep(lambda epoch: LR, s, clip_mode=HALF_CLIP, bf16=True)
     net = make_net(dev)
     return SimpleNamespace(
         sample_fn=sample_fn, net=net, opt=make_adam(net.parameters()),
         step=mk(synth), step_phys=mk(phys), batch={"hr": hr},
-        batch_phys={"hr": hr_packed if packed else hr},
         gen=torch.Generator(device=dev).manual_seed(STEP_SEED))
 
 
@@ -147,12 +124,11 @@ def programs(s: SimpleNamespace) -> dict:
 
     return {"sample": sample, "synth": synth, "fwd": fwd, "bwd": bwd,
             "step": lambda: s.step(s.net, s.opt, s.batch, s.gen, 1)["loss"],
-            "physics": lambda: s.step_phys(s.net, s.opt, s.batch_phys, s.gen, 1)["loss"]}
+            "physics": lambda: s.step_phys(s.net, s.opt, s.batch, s.gen, 1)["loss"]}
 
 
 def main(argv=None, device=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--form", choices=FORMS, default="channels_last")
     ap.add_argument("--iters", type=int, default=8, help="timed repeats (median)")
     ap.add_argument("--scan", type=int, default=8, help="steps chained per timed run")
     ap.add_argument("--d", type=int, default=1024,
@@ -163,8 +139,8 @@ def main(argv=None, device=None):
     a = ap.parse_args(argv)
 
     dev = torch.device("cpu") if a.cpu else resolve_device(device)
-    print(f"devices: {dev} ({card_label(dev)}); form {a.form}", file=sys.stderr)
-    progs = programs(build(a.form, a.d, a.small, dev))
+    print(f"devices: {dev} ({card_label(dev)})", file=sys.stderr)
+    progs = programs(build(a.d, a.small, dev))
     rows, prev = [], 0.0
     for name in PREFIXES:
         ms = calls_ms(progs[name], a.scan, a.iters, dev)
@@ -175,7 +151,7 @@ def main(argv=None, device=None):
     phys = calls_ms(progs["physics"], a.scan, a.iters, dev)
     print(f"physics: cum {phys:7.2f} ms  (control, full step)")
     out = {"metric": "proxy_step_profile", "d": a.d, "rows": rows,
-           "physics_step_ms": round(phys, 3), "gap_ms": round(prev - phys, 3), "form": a.form}
+           "physics_step_ms": round(phys, 3), "gap_ms": round(prev - phys, 3)}
     print(json.dumps(out), flush=True)
     return out
 

@@ -33,9 +33,7 @@ from pnnp_tpu_torch.train.steps import (
     make_mix_synth,
     make_proxy_synth,
     make_raw_synth,
-    make_raw_synth_packed,
     make_train_step,
-    pack_synth,
     pad_split,
     pad_to_multiple,
     params_key,

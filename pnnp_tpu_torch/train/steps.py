@@ -25,18 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from pnnp_tpu_torch.kernels.ssim import ssim_flat
-from pnnp_tpu_torch.models.unet_s2d import (
-    d2s,
-    packed_from_host,
-    s2d,
-    transform_params_hybrid,
-    unet_hybrid_forward_packed,
-)
+from pnnp_tpu_torch.models.unet_s2d import d2s, s2d, transform_params_hybrid
 from pnnp_tpu_torch.ops.correct import illuminance_correct
 from pnnp_tpu_torch.physics.calibration import HALF_CLIP, LEGAL_ISO
 from pnnp_tpu_torch.physics.noise import (
     generate_noisy,
-    generate_noisy_packed,
     get_aug_param,
     sna,
 )
@@ -107,41 +100,6 @@ def make_raw_synth(camera_type: str, noise_code: str, ori: bool, clip: bool,
         return lr, hr, params["ratio"]
 
     return synth
-
-
-def make_raw_synth_packed(camera_type: str, noise_code: str, ori: bool, clip: bool,
-                          iso=None, ratio=None, gtdn: bool = False,
-                          lrid: bool = False, noiseparam: Optional[dict] = None):
-    """:func:`make_raw_synth` in the packed layout: the same draws and
-    distribution (row banding exact, :func:`generate_noisy_packed`), lr and
-    hr ``[n, 16, h/2, w/2]`` for the packed train step. ``batch["hr"]`` may
-    come unpacked ``[n, 4, h, w]`` (packed here, once) or packed."""
-    table = _noiseparam_table(camera_type, iso, noiseparam)
-
-    def synth(generator, batch):
-        hr = batch["hr"]
-        if hr.shape[1] == 4:
-            hr = s2d(hr)
-        params = _raw_synth_params(generator, camera_type, hr.shape[0], iso, ratio,
-                                   gtdn, lrid, table)
-        lr = generate_noisy_packed(generator, hr, params, noise_code, ori=ori,
-                                   clip=bool(clip))
-        return lr, hr, params["ratio"]
-
-    return synth
-
-
-def pack_synth(synth: Callable) -> Callable:
-    """An unpacked synth stage for the packed train step: lr and hr packed
-    once, after synthesis (no gradient flows through data)."""
-
-    def packed(generator, batch):
-        lr, hr, ratio = synth(generator, batch)
-        if lr.shape[1] == 4:
-            lr, hr = s2d(lr), s2d(hr)
-        return lr, hr, ratio
-
-    return packed
 
 
 def make_proxy_synth(sample_fn: Callable, ori: bool = False,
@@ -300,16 +258,6 @@ class TrainStep:
     bfloat16 (the JAX package's fast path: f32 master params, bf16 forward);
     otherwise the step is exact float32, with TF32 off.
 
-    ``packed=True`` (UNetSeeInDark; JAX's ``fast="packed"``) runs the whole
-    step in the packed layout: the synth yields ``[n, 16, h/2, w/2]`` lr/hr
-    (:func:`make_raw_synth_packed`, or :func:`pack_synth` around another),
-    the forward is :func:`~pnnp_tpu_torch.models.unet_s2d.unet_hybrid_forward_packed`
-    on the :func:`~pnnp_tpu_torch.models.unet_s2d.transform_params_hybrid`
-    fold of the model's own parameters, in bf16 or f32 as above but cast
-    explicitly, as JAX does, not under autocast; the fold is differentiable,
-    so the gradients land on the standard parameters. L1 and MSE do not see
-    the permutation: loss and psnr are the unpacked step's.
-
     ``deep_supervision=True`` (the deep-supervised archs, ``use_dpsv``;
     ``pnnp_tpu/train/steps.py:307-325``) calls ``model(lr, train=True)`` for
     its ``(out, out2, out4, out8)`` and trains on
@@ -326,18 +274,15 @@ class TrainStep:
     """
 
     def __init__(self, lr_schedule: Callable, synth: Callable = identity_synth,
-                 clip_mode=0, bf16: bool = False, packed: bool = False,
+                 clip_mode=0, bf16: bool = False,
                  memory_format: Optional[torch.memory_format] = None,
                  deep_supervision: bool = False):
-        if deep_supervision and packed:
-            raise ValueError("the packed step has no deep-supervision heads")
         self.lr_schedule = lr_schedule
         self.synth = synth
         self.clip_mode = clip_mode
         self.bf16 = bf16
-        self.packed = packed
         self.deep_supervision = deep_supervision
-        if memory_format is None and bf16 and not packed:
+        if memory_format is None and bf16:
             memory_format = BF16_MEMORY_FORMAT
         self.memory_format = memory_format
 
@@ -351,14 +296,7 @@ class TrainStep:
         if self.memory_format is not None:
             to_memory_format(model, self.memory_format)
         model.zero_grad(set_to_none=True)
-        if self.packed:
-            dtype = torch.bfloat16 if self.bf16 else torch.float32
-            if not self.bf16:
-                _exact_f32(model)
-            tp = transform_params_hybrid(model, dtype)
-            pred = unet_hybrid_forward_packed(tp, lr_img, lr_img if model.res else None, dtype)
-            loss = unet_loss(pred, hr_img)
-        elif self.bf16:
+        if self.bf16:
             with torch.autocast(lr_img.device.type, dtype=torch.bfloat16):
                 pred, loss = self._loss(model, lr_img, hr_img)
         else:
@@ -398,10 +336,10 @@ class TrainStep:
 
 def make_train_step(lr_schedule: Callable, synth: Callable = identity_synth,
                     clip_mode=0, deep_supervision: bool = False,
-                    bf16: bool = False, packed: bool = False,
+                    bf16: bool = False,
                     memory_format: Optional[torch.memory_format] = None) -> TrainStep:
     """Build the train step (see :class:`TrainStep`)."""
-    return TrainStep(lr_schedule, synth, clip_mode=clip_mode, bf16=bf16, packed=packed,
+    return TrainStep(lr_schedule, synth, clip_mode=clip_mode, bf16=bf16,
                      memory_format=memory_format, deep_supervision=deep_supervision)
 
 
@@ -471,7 +409,18 @@ class HybridParams:
         return self.tparams
 
 
-def make_eval_metrics_step(model, qparams: Optional[dict] = None, packed: bool = False,
+def refuse_packed_frame(lr: torch.Tensor, in_nc: int) -> None:
+    """Raises ``ValueError`` for a ``[.., 16]`` frame given to a model of
+    4-channel frames: that is the packed (dense-s2d) layout, which the eval
+    steps do not take (they pack internally where the forward needs it)."""
+    if lr.shape[-1] == 16 and in_nc == 4:
+        raise ValueError(
+            f"eval frame of shape {tuple(lr.shape)} is in the packed (dense-s2d) "
+            "16-channel layout; the eval steps take unpacked RGBG frames "
+            "[1, H, W, 4] or flat [1, H, W*4]")
+
+
+def make_eval_metrics_step(model, qparams: Optional[dict] = None,
                            memory_format: Optional[torch.memory_format] = None):
     """Fused full-frame eval: forward + clip + illuminance correction +
     PSNR + SSIM (the CUDA kernel on the card) in one call.
@@ -481,40 +430,36 @@ def make_eval_metrics_step(model, qparams: Optional[dict] = None, packed: bool =
     [/psnr_in/ssim_in]) and, with ``with_inputs``, the (ori-scaled, clipped)
     input panel ``lr_panel`` [1, H, W*4] as a third element. ``lr``/``hr``
     are flat ``[1, H, W*4]`` or ``[1, H, W, 4]`` tensors on the model's
-    device; ``lr`` may also come pre-packed by the host
-    (:func:`~pnnp_tpu_torch.models.unet_s2d.pack_frame_np`: %16 reflect pad
-    and s2d, NHWC ``[1, H'/2, W'/2, 16]``), the crop then taken from ``hr``'s
-    shape. Reference eval semantics (trainer_SID.py:221-248): ori
-    amplification, clip, correct dn against hr, score at data_range 255.
+    device; a packed ``[.., 16]`` lr is refused (:func:`refuse_packed_frame`).
+    Reference eval semantics (trainer_SID.py:221-248): ori amplification,
+    clip, correct dn against hr, score at data_range 255.
 
-    The forward: the NCHW module (default), or with ``packed`` the hybrid
-    packed form (:func:`~pnnp_tpu_torch.models.unet_s2d.unet_hybrid_forward_packed`,
-    JAX's forward here) on weights transformed once per parameter version;
-    with ``qparams`` (from
+    The forward: the NCHW module (default), or with ``qparams`` (from
     :func:`~pnnp_tpu_torch.models.unet_s2d_int8.quantize_params_int8`) the
-    W8A8 forward, the metrics in f32 as ever (a ``res`` model is refused).
-    The model runs in its own dtype (bf16 serving, or f32) and hands back
-    float32. ``step.tparams()`` gives the transformed weights. The module
-    forward's parameters move into ``memory_format`` memory here, in place
-    (by default :data:`BF16_MEMORY_FORMAT` for a bf16 model, f32 as it
-    comes).
+    W8A8 packed forward, which pads the frame to %16 and packs it with
+    :func:`~pnnp_tpu_torch.models.unet_s2d.s2d` itself, on weights
+    transformed once per parameter version; the metrics in f32 as ever (a
+    ``res`` model is refused). The model runs in its own dtype (bf16
+    serving, or f32) and hands back float32. ``step.tparams()`` gives the
+    transformed weights. The module forward's parameters move into
+    ``memory_format`` memory here, in place (by default
+    :data:`BF16_MEMORY_FORMAT` for a bf16 model, f32 as it comes).
     """
     _exact_f32(model)
-    if not packed and qparams is None:
-        _serving_memory_format(model, memory_format)
     in_nc = getattr(model, "in_nc", 4)
-    res = bool(getattr(model, "res", False))
-    if qparams is not None:
-        if res:
+    tparams = HybridParams(model)
+    if qparams is None:
+        _serving_memory_format(model, memory_format)
+        forward = lambda lr: _forward_cropped(model, lr.permute(0, 3, 1, 2))
+    else:
+        if getattr(model, "res", False):
             raise ValueError("the int8 serving path has no residual-input support")
         from pnnp_tpu_torch.models.unet_s2d_int8 import unet_hybrid_forward_packed_int8
 
-        fwd = lambda tp, g1: unet_hybrid_forward_packed_int8(tp, qparams, g1, model.dtype)
-        packed = True
-    else:
-        fwd = lambda tp, g1: unet_hybrid_forward_packed(tp, g1, g1 if res else None,
-                                                        model.dtype)
-    tparams = HybridParams(model)
+        def forward(lr):
+            x, (oy, ox, H, W) = _pad_nchw(lr.permute(0, 3, 1, 2).float(), 16)
+            g = unet_hybrid_forward_packed_int8(tparams(), qparams, s2d(x), model.dtype)
+            return d2s(g)[:, :, oy:oy + H, ox:ox + W].float()
 
     @torch.no_grad()
     def step(lr, hr, ratio, *, ori=False, correct=True, with_inputs=False):
@@ -522,28 +467,12 @@ def make_eval_metrics_step(model, qparams: Optional[dict] = None, packed: bool =
             lr = lr.reshape(1, lr.shape[1], -1, 4)
         if hr.dim() == 3:
             hr = hr.reshape(1, hr.shape[1], -1, 4)
-        H, W = hr.shape[1], hr.shape[2]
-        # host pre-packed: only unambiguous for a model of 4-channel frames
-        # (a 16-channel lr of an in_nc=16 model is an unpacked input)
-        host_packed = lr.shape[-1] == 16 and in_nc == 4
-        if host_packed:
-            g1 = packed_from_host(lr)
-            oy, ox = pad_split(H)[0], pad_split(W)[0]
-            crop = lambda t: t[:, :, oy:oy + H, ox:ox + W]
-        if packed:
-            if not host_packed:
-                x, (oy, ox, _, _) = _pad_nchw(lr.permute(0, 3, 1, 2).float(), 16)
-                crop = lambda t: t[:, :, oy:oy + H, ox:ox + W]
-                g1 = s2d(x)
-            dn = crop(d2s(fwd(tparams(), g1))).float()
-        elif host_packed:
-            dn = crop(model(d2s(g1).float()))
-        else:
-            dn = _forward_cropped(model, lr.permute(0, 3, 1, 2))
+        refuse_packed_frame(lr, in_nc)
+        H = hr.shape[1]
+        dn = forward(lr)
         dnf = dn[0].permute(1, 2, 0).reshape(H, -1)  # [H, W*4] dense copy
-        if with_inputs:  # the only consumer of the unpacked input frame
-            lr_un = crop(d2s(g1)).permute(0, 2, 3, 1) if host_packed else lr
-            lrf = lr_un[0].float().reshape(H, -1)
+        if with_inputs:
+            lrf = lr[0].float().reshape(H, -1)
         if ori:
             r = torch.as_tensor(ratio, dtype=torch.float32,
                                 device=dnf.device).reshape(())

@@ -18,10 +18,7 @@ HighBitRecovery of the IMX686 bias pastes on the card; black-frame shot
 noise plus the real read layer for the SFRN names; or real pairs, the PMNNP
 names included, as in JAX), then forward, L1, backward and Adam scaled by
 ``lr(epoch)``. UNetSeeInDark trains with a bf16 forward under autocast
-(f32 with ``disable_fast_path: true``); where :attr:`Trainer.packed_step`
-is on, through the JAX Trainer's packed step instead
-(``pnnp_tpu/trainer.py:203-216``: the synth packs, the forward is the
-hybrid dense-s2d form of the same parameters). ``train`` evaluates every
+(f32 with ``disable_fast_path: true``). ``train`` evaluates every
 ``plot_freq`` epochs, reloads the best weights at each SGDR period boundary,
 and ends with the ``evaltest`` sweep over the best weights; ``trainonly``
 trains without the eval legs.
@@ -121,9 +118,7 @@ from pnnp_tpu_torch.train import (
     make_mix_synth,
     make_proxy_synth,
     make_raw_synth,
-    make_raw_synth_packed,
     make_train_step,
-    pack_synth,
     pad_to_multiple,
     params_key,
 )
@@ -173,14 +168,6 @@ class Parser:
 
 class Trainer:
     _phone_eval_corrects = False  # IMX686 evals uncorrected (see _brightness_correct)
-    # The packed train step (JAX's fast="packed") computes what the unpacked
-    # one does; it is off because it lost chip_smoke.py's same-call A/B
-    # (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): bf16 step at
-    # 8 x 512^2 pgrq, NCHW 27.015 ms, channels_last 19.803 (the bf16 steps'
-    # default memory format), packed 27.976. This is the one selector of
-    # that step: the port never packs unless it is on, so JAX's runfile key
-    # disable_packed_step has nothing to disable and is not read.
-    packed_step = False
 
     def __init__(self, runfile: str, mode: Optional[str] = None, nofig: bool = False,
                  debug: bool = False, root_prefix: Optional[str] = None, seed: int = 1997,
@@ -263,10 +250,6 @@ class Trainer:
 
         # --- train step (after the datasets: the IMX686 synth reads the
         # train dataset's noiseparam calibration) --------------------------
-        # the packed step: the JAX Trainer's _use_packed (physics, proxy,
-        # Mix, SFRN and paired families alike), where packed_step is on
-        self._use_packed = (fast and self.packed_step
-                            and bool((self.dst_train or {}).get("dataset")))
         self.synth = self._make_synth()
         self.train_step = self.opt = None
         if self.training:
@@ -277,7 +260,7 @@ class Trainer:
                     f"DeepResUNet), not {self.arch['name']}")
             self.train_step = make_train_step(
                 self.lr_schedule, self.synth, clip_mode=self.dst.get("clip", 0),
-                deep_supervision=dpsv, bf16=fast, packed=self._use_packed)
+                deep_supervision=dpsv, bf16=fast)
             self._base_train_step = self.train_step  # unsharded (parity tests)
             self.train_step = make_sharded_train_step(self.mesh, self.train_step)
             self.opt = make_adam(self.model.parameters())
@@ -420,18 +403,7 @@ class Trainer:
     def _make_synth(self):
         """The on-device synthesis stage, by train dataset (the reference
         preprocess dispatch, trainer_SID.py:428-472, as the JAX Trainer's
-        ``_make_synth``); sets ``synth_keys``, the batch keys it reads. For
-        the packed step the physics families synthesize in the packed
-        layout and the others are packed after synthesis."""
-        synth = self._family_synth()
-        return pack_synth(synth) if self._packed() else synth
-
-    def _packed(self) -> bool:
-        # read as the JAX Trainer reads it (a Trainer built without __init__,
-        # as its tests build one, trains unpacked)
-        return getattr(self, "_use_packed", False)
-
-    def _family_synth(self):
+        ``_make_synth``); sets ``synth_keys``, the batch keys it reads."""
         self.synth_keys = self._PAIR_KEYS
         if not self.dst_train or not self.training:
             return identity_synth
@@ -455,9 +427,8 @@ class Trainer:
                 ds = self.dataset_train
                 ds = ds.datasets[0] if hasattr(ds, "datasets") else ds
                 nps = getattr(ds, "noiseparam", {}).get(iso)
-            mk = make_raw_synth_packed if self._packed() else make_raw_synth
-            return mk(cam, code, ori, clip, gtdn="GTdn" in command,
-                      iso=iso, lrid=lrid, noiseparam=nps)
+            return make_raw_synth(cam, code, ori, clip, gtdn="GTdn" in command,
+                                  iso=iso, lrid=lrid, noiseparam=nps)
         if name in ("Proxy_Dataset", "IMX686_Proxy_Dataset", "NF_Syn_Dataset",
                     "IMX686_NF_Syn_Dataset"):
             if self.proxy is None:
@@ -505,12 +476,11 @@ class Trainer:
             # GT plus the real bias-frame read layer, amplified alike
             # (reference: syn_datasets.py:465-579)
             self.synth_keys = ("hr", "lr")
-            packed = self._packed()
-            raw = (make_raw_synth_packed if packed else make_raw_synth)(cam, code + "b", ori, clip)
+            raw = make_raw_synth(cam, code + "b", ori, clip)
 
             def synth(generator, batch):
                 lr_shot, hr, ratio = raw(generator, batch)
-                read_layer = s2d(batch["lr"]) if packed else batch["lr"]
+                read_layer = batch["lr"]
                 if not ori:
                     read_layer = read_layer * ratio.reshape(-1, 1, 1, 1)
                 return lr_shot + read_layer, hr, ratio
@@ -519,6 +489,9 @@ class Trainer:
         # paired data, PMNNP_Dataset and IMX686_PMNNP_Dataset included: the
         # JAX Trainer gives them no synth either (ROADMAP section 3)
         return identity_synth
+
+    # portbench/drivers/train_proxy_synth.py calls the dispatch by this name
+    _family_synth = _make_synth
 
     def _try_restore(self):
         # trainonly is a training mode: resume from 'last' like 'train'

@@ -148,28 +148,17 @@ def test_pad_to_multiple_matches_reference_symmetric_pad():
 
 
 def test_packed_16_channel_input_raises(params):
-    """A host pre-packed 16-channel frame (``pack_frame_np``: %16 reflect pad
-    and s2d) raised until the packed forms were ported; the step now serves
-    it through its packed branch, the crop taken from hr: the unpacked
-    frame's outputs exactly, and within the bf16 bars of JAX's fused step
-    fed the same packed frame (JAX's packed branch)."""
-    from pnnp_tpu_torch.models.unet_s2d import pack_frame_np
+    """A ``[.., 16]`` frame (the packed dense-s2d layout) given to a model
+    of 4-channel frames is refused with a ValueError that names the layout,
+    by the module and the int8 route alike, flat hr or not."""
+    import pnnp_tpu_torch.models.unet_s2d_int8 as PI
 
-    rng = np.random.default_rng(6)
-    lr = rng.uniform(0, 0.4, (1, 40, 56, 4)).astype(np.float32)  # pads to 48 x 64
-    hr = rng.uniform(0, 1.0, (1, 40, 56, 4)).astype(np.float32)
-    g = pack_frame_np(lr)
-    assert g.shape == (1, 24, 32, 16)
-    kw = dict(ori=True, correct=True, with_inputs=True)
-    for dtype in (torch.float32, torch.bfloat16):
-        step = make_eval_metrics_step(_port_model(params, dtype))
-        a = step(torch.from_numpy(lr), torch.from_numpy(hr), 2.0, **kw)
-        b = step(torch.from_numpy(g), torch.from_numpy(hr), 2.0, **kw)
-        assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
-        assert {k: float(v) for k, v in a[1].items()} == {k: float(v) for k, v in b[1].items()}
-    _, m_ref, _ = jax_make_fused(FlaxUNet(nf=NF))(
-        transform_params_hybrid(params), jnp.asarray(g), jnp.asarray(hr),
-        jnp.float32(2.0), **kw)
-    assert abs(float(b[1]["psnr"]) - float(m_ref["psnr"])) < 1e-2
-    assert abs(float(b[1]["ssim"]) - float(m_ref["ssim"])) < 1e-3
-    assert abs(float(b[1]["psnr_in"]) - float(m_ref["psnr_in"])) < 5e-3
+    net = _port_model(params, torch.float32)
+    g = torch.rand((1, 24, 32, 16), generator=torch.Generator().manual_seed(6))
+    tp = make_eval_metrics_step(net).tparams()
+    qp = PI.quantize_params_int8(tp, PI.calibrate_act_scales(tp, [g.permute(0, 3, 1, 2)],
+                                                             torch.float32))
+    for step in (make_eval_metrics_step(net), make_eval_metrics_step(net, qparams=qp)):
+        for hr in (torch.zeros(1, 40, 56, 4), torch.zeros(1, 40, 56 * 4)):
+            with pytest.raises(ValueError, match="packed .*16-channel layout"):
+                step(g, hr, 2.0, ori=True, with_inputs=True)

@@ -28,7 +28,7 @@ from tests.test_torch_models import jax_unet_params
 from tests.test_torch_trainer import _shape_only_state
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-FACTORIES = ("make_raw_synth", "make_raw_synth_packed", "make_mix_synth", "make_proxy_synth")
+FACTORIES = ("make_raw_synth", "make_mix_synth", "make_proxy_synth")
 # the arguments a factory's choice is compared on; callables by presence
 COMPARED = ("camera_type", "noise_code", "ori", "clip", "gtdn", "lrid", "iso", "ratio",
             "noiseparam", "command", "hbr_map", "host_amplified", "ratio_range",

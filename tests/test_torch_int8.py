@@ -37,18 +37,16 @@ import pnnp_tpu_torch.ops.int8conv as IC
 from pnnp_tpu.models.unet_s2d import transform_params_hybrid as jax_transform
 from pnnp_tpu.models.unet_s2d import unet_hybrid_forward_packed as jax_packed
 from pnnp_tpu_torch.models import UNetSeeInDark, params_from_jax
-from pnnp_tpu_torch.models.unet_s2d import (
-    packed_from_host,
-    transform_params_hybrid,
-    unet_hybrid_forward_packed,
-)
+from pnnp_tpu_torch.models.unet_s2d import transform_params_hybrid, unet_hybrid_forward_packed
 from tests.test_torch_models import jax_unet_params
 
 NF = 8
 
 
 def packed(a):
-    return packed_from_host(torch.from_numpy(np.ascontiguousarray(a)))
+    """A host NHWC packed frame ``[N, h, w, 16]`` as the port's
+    ``[N, 16, h, w]`` (a permute: ``channels_last`` memory)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)
 
 
 def nhwc(t):
@@ -313,6 +311,39 @@ def test_int8_fused_eval_step(setup):
     res_net = UNetSeeInDark(nf=NF, res=True)
     with pytest.raises(ValueError, match="residual"):
         make_eval_metrics_step(res_net, qparams=qp)
+
+
+def test_int8_fused_eval_step_crop_and_inputs():
+    """The int8 route pads the frame to %16, packs it with ``s2d`` and crops
+    its output back itself. At the %16-misaligned 40x56, with ori and
+    with_inputs: the input panel and its meters equal the bf16 step's bit
+    for bit; the output has the bf16 step's shape and crop (closer to the
+    bf16 output than that output shifted by a row or a column is, and
+    within the random-weight int8 bar, relative L2 0.08). The head bias 0.3
+    keeps the output inside the [0, 1] clip (measured: 0.011 against 0.18
+    and 0.20 shifted)."""
+    from pnnp_tpu_torch.models.unet_s2d import s2d
+    from pnnp_tpu_torch.train.steps import make_eval_metrics_step, pad_to_multiple
+
+    net = UNetSeeInDark(nf=NF, dtype=torch.bfloat16)
+    net.load_state_dict(params_from_jax(jax_unet_params(NF, seed=5, std=0.1, head_bias=0.3)))
+    rng = np.random.default_rng(9)
+    lr = torch.from_numpy((rng.uniform(0, 1, (1, 40, 56, 4)) * 0.4).astype(np.float32))
+    hr = torch.from_numpy(rng.uniform(0, 1, (1, 40, 56, 4)).astype(np.float32))
+    tp = transform_params_hybrid(net, torch.bfloat16)
+    cal = s2d(pad_to_multiple(lr, 16)[0].permute(0, 3, 1, 2))
+    qp = PI.quantize_params_int8(tp, PI.calibrate_act_scales(tp, [cal], pct=99.95))
+    kw = dict(ori=True, correct=True, with_inputs=True)
+    dn8, m8, p8 = make_eval_metrics_step(net, qparams=qp)(lr, hr, 2.0, **kw)
+    dn16, m16, p16 = make_eval_metrics_step(net)(lr, hr, 2.0, **kw)
+    assert torch.equal(p8, p16) and p8.shape == (1, 40, 56 * 4)
+    assert float(m8["psnr_in"]) == float(m16["psnr_in"])
+    assert float(m8["ssim_in"]) == float(m16["ssim_in"])
+    assert dn8.shape == dn16.shape == (1, 40, 56 * 4)
+    a, b = dn8.reshape(40, 56, 4).numpy(), dn16.reshape(40, 56, 4).numpy()
+    err = rel(a, b)
+    assert err < 0.08, err
+    assert err < rel(a[1:], b[:-1]) and err < rel(a[:, 1:], b[:, :-1]), err
 
 
 def test_int8_partial_quant_ablation(setup):

@@ -368,14 +368,15 @@ def _frame(H, W, seed=0):
     return torch.from_numpy(lr), torch.from_numpy(hr)
 
 
-# (name, H, W, ratio, ori, with_inputs, host-packed)
+# (name, H, W, ratio, ori, with_inputs); packed_inputs hands the step the
+# frame in the packed 16-channel layout, which it refuses
 EVAL_CASES = [
-    ("aligned", 128, 1664, 100.0, True, False, False),
-    ("aligned_inputs", 128, 1664, 100.0, True, True, False),
-    ("misaligned", 122, 1700, 100.0, False, False, False),
-    ("packed_inputs", 122, 1700, 100.0, True, True, True),
-    ("fallback", 32, 48, 1.0, False, False, False),
-    ("int8", 122, 1700, 100.0, True, False, False),
+    ("aligned", 128, 1664, 100.0, True, False),
+    ("aligned_inputs", 128, 1664, 100.0, True, True),
+    ("misaligned", 122, 1700, 100.0, False, False),
+    ("packed_inputs", 122, 1700, 100.0, True, True),
+    ("fallback", 32, 48, 1.0, False, False),
+    ("int8", 122, 1700, 100.0, True, False),
 ]
 
 
@@ -398,15 +399,17 @@ def _as_numpy(out):
     return frame, {k: float(v) for k, v in out[1].items()}
 
 
-def _sharded_call(step, lr, hr, ratio, ori, with_inputs, packed, nsp, halo):
-    from pnnp_tpu_torch.models.unet_s2d import pack_frame_sharded_np
+def _refusal(step, lr, hr, ratio, **kw):
+    """The message of the ValueError ``step`` raises for ``lr`` packed
+    ``[1, H/2, W/2, 16]`` (each rank gets its own)."""
+    from pnnp_tpu_torch.models.unet_s2d import s2d
 
-    kw = dict(ori=ori, correct=True, with_inputs=with_inputs)
-    if packed:
-        g, hl, hr_halo = pack_frame_sharded_np(lr.numpy(), nsp, halo=halo)
-        return step(torch.from_numpy(g), hr, ratio,
-                    halos=(torch.from_numpy(hl), torch.from_numpy(hr_halo)), **kw)
-    return step(lr, hr, ratio, **kw)
+    g = s2d(lr.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    try:
+        step(g, hr, ratio, **kw)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def _eval_worker(rank):
@@ -425,11 +428,14 @@ def _eval_worker(rank):
              "int8": make_eval_metrics_step_sharded(net, mesh, halo=HALO,
                                                     qparams=_qparams(net))}
     out = {}
-    for name, H, W, ratio, ori, with_inputs, packed in EVAL_CASES:
+    for name, H, W, ratio, ori, with_inputs in EVAL_CASES:
         lr, hr = _frame(H, W)
         step = steps["int8" if name == "int8" else ""]
-        out[name] = _as_numpy(_sharded_call(step, lr, hr, ratio, ori, with_inputs, packed,
-                                            2, HALO))
+        kw = dict(ori=ori, correct=True, with_inputs=with_inputs)
+        if name == "packed_inputs":
+            out[name] = _refusal(step, lr, hr, ratio, **kw)
+        else:
+            out[name] = _as_numpy(step(lr, hr, ratio, **kw))
     lr, _ = _frame(64, 256, seed=1)
     fwd = make_eval_step(net)
     out["spatial_halo0"] = spatial_eval(mesh, fwd, lr, halo=0).numpy()
@@ -438,9 +444,7 @@ def _eval_worker(rank):
     H, W, halo = JAX_CASE
     bf16 = make_eval_metrics_step_sharded(_eval_model(torch.bfloat16), mesh, halo=halo)
     lr, hr = _frame(H, W, seed=3)
-    for packed in (False, True):
-        out[f"jax_{packed}"] = _as_numpy(_sharded_call(bf16, lr, hr, 100.0, True, True,
-                                                       packed, 2, halo))
+    out["jax"] = _as_numpy(bf16(lr, hr, 100.0, ori=True, correct=True, with_inputs=True))
     return out
 
 
@@ -464,11 +468,19 @@ def _close(got, ref, tol):
 def test_sharded_eval_matches_single_device(sharded_eval, case):
     from pnnp_tpu_torch.train import make_eval_metrics_step
 
-    name, H, W, ratio, ori, with_inputs, _ = case
+    name, H, W, ratio, ori, with_inputs = case
     lr, hr = _frame(H, W)
     net = _eval_model()
     step = make_eval_metrics_step(net, qparams=_qparams(net) if name == "int8" else None)
-    ref = _as_numpy(step(lr, hr, ratio, ori=ori, correct=True, with_inputs=with_inputs))
+    kw = dict(ori=ori, correct=True, with_inputs=with_inputs)
+    if name == "packed_inputs":
+        # the sharded step refuses the packed layout on every rank, with the
+        # single-device step's message
+        ref = _refusal(step, lr, hr, ratio, **kw)
+        assert ref is not None and "16-channel layout" in ref
+        assert [r[name] for r in sharded_eval] == [ref] * len(sharded_eval)
+        return
+    ref = _as_numpy(step(lr, hr, ratio, **kw))
     for rank_out in sharded_eval:
         _close(rank_out[name], ref, EVAL_TOL)
     np.testing.assert_array_equal(sharded_eval[0][name][0][0], sharded_eval[1][name][0][0])
@@ -498,6 +510,9 @@ def test_spatial_eval_matches_whole_frame(sharded_eval):
 
 @pytest.mark.parametrize("packed", [False, True])
 def test_sharded_eval_matches_jax(sharded_eval, packed):
+    """The port's sharded bf16 step on the unpacked frame against JAX's
+    sharded step fed the frame as it is or host-packed at the sharded
+    geometry (its ``pack_frame_sharded_np``, with the edge halos)."""
     import jax
     import jax.numpy as jnp
 
@@ -522,7 +537,7 @@ def test_sharded_eval_matches_jax(sharded_eval, packed):
         out = step(tp, lr, hr, 100.0, **kw)
     ref = ([np.asarray(out[0]), np.asarray(out[2])], {k: float(v) for k, v in out[1].items()})
     for rank_out in sharded_eval:
-        _close(rank_out[f"jax_{packed}"], ref, BF16_TOL)
+        _close(rank_out["jax"], ref, BF16_TOL)
 
 
 # ----------------------------------------------------------------- Trainer

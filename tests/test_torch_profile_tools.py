@@ -30,11 +30,11 @@ reference's max |value| ("relative" below).
   against ``quantile_dot`` within the bf16 knot bound (a knot near a bf16
   rounding boundary may round apart); ``full`` equal to the module's
   ``sample`` on the same generator state.
-* ``profile_proxy_step``: the packed form's ``fwd`` loss and ``bwd``
-  gradients on fixed lr / hr against JAX's ``unet_loss`` of the packed
-  forward and its ``jax.value_and_grad``, in f32 within 1e-5 relative (each
-  gradient leaf against its largest magnitude); the JSON line of a ``--cpu
-  --small`` run carries the JAX tool's keys and ``form``.
+* ``profile_proxy_step``: the step's ``fwd`` loss and ``bwd`` gradients
+  (``TrainStep`` in f32) on fixed lr / hr against JAX's ``unet_loss`` of
+  the flax UNetSeeInDark and its ``jax.value_and_grad``, in f32 within 1e-5
+  relative (each gradient leaf against its largest magnitude); the JSON
+  line of a ``--cpu --small`` run has exactly the JAX tool's keys.
 * ``bench_serving_variants --cpu --small``: one JSON line per CPU variant,
   every frame bit-equal to the loop's but ``int8``'s, which is held to the
   W8A8 path's random-weight bar (tests/test_unet_s2d_int8.py: relative L2
@@ -299,17 +299,16 @@ def test_proxy_synth_full_is_the_production_sample(proxies):
 def test_proxy_step_fwd_bwd_match_jax(unet):
     params, _, _, _, _, _ = unet
     r = np.random.default_rng(11)
-    lr = r.uniform(0, 0.1, (2, 16, 16, 16)).astype(np.float32)
+    lr = r.uniform(0, 0.1, (2, 32, 32, 4)).astype(np.float32)
     hr = r.uniform(0, 1, lr.shape).astype(np.float32)
 
     def loss_val(p, a, b):
-        tp = J.transform_params_hybrid(p, jnp.float32)
-        return jax_unet_loss(J.unet_hybrid_forward_packed(tp, a, dtype=jnp.float32), b)
+        return jax_unet_loss(FlaxUNet(nf=NF).apply({"params": p}, a), b)
 
     ref_loss, ref_grads = jax.value_and_grad(loss_val)(params, jnp.asarray(lr), jnp.asarray(hr))
     net = UNetSeeInDark(nf=NF)
     net.load_state_dict(params_from_jax(params), strict=True)
-    step = TrainStep(lambda epoch: 1e-4, packed=True, bf16=False, clip_mode=2)
+    step = TrainStep(lambda epoch: 1e-4, bf16=False, clip_mode=2)
     with torch.no_grad():
         fwd = float(PPS.forward_loss(step, net, nchw(lr), nchw(hr)))
     loss, gsum = PPS.backward_loss(step, net, nchw(lr), nchw(hr))
@@ -333,10 +332,9 @@ def test_proxy_step_json_keys(capsys):
     jax_keys = {k.value for k in dumps[-1].args[0].keys}
     row_keys = next({k.value for k in n.keys} for n in ast.walk(src) if isinstance(n, ast.Dict)
                     and any(getattr(k, "value", None) == "prefix" for k in n.keys))
-    out = PPS.main(["--cpu", "--small", "--iters", "1", "--scan", "1", "--d", "16",
-                    "--form", "packed"])
+    out = PPS.main(["--cpu", "--small", "--iters", "1", "--scan", "1", "--d", "16"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line == out and set(line) == jax_keys | {"form"} and line["form"] == "packed"
+    assert line == out and set(line) == jax_keys
     assert [r["prefix"] for r in line["rows"]] == list(PPS.PREFIXES)
     assert all(set(r) == row_keys for r in line["rows"]), row_keys
     assert all(np.isfinite(r["cum_ms"]) for r in line["rows"])

@@ -1,7 +1,7 @@
 """The last loose names of the JAX package and the eval tools and demos
 (ROADMAP 1.17) against the JAX package, at a small size on the CPU.
 
-* ``data/native.py::pack_crops`` / ``pack_s2d`` bit-identical to JAX's on
+* ``data/native.py::pack_crops`` / ``pack_full`` bit-identical to JAX's on
   one raw mosaic, and the same ``ValueError`` on a crop plan out of bounds.
 * ``models/convert.py``: an ELD ``{'netG': ...}`` file unwrapped to the
   port's state dict equal to JAX's ``eld_checkpoint_to_flax`` carried
@@ -12,14 +12,15 @@
   the same ``default_rng``; both tools' ``main`` at 40000 samples, every
   row's ``kl_sym`` at most 5e-3 (measured at this size: port 3.6e-4 to
   2.0e-3, JAX 1.9e-4 to 2.4e-3).
-* The inner loops of ``eval_fullres`` (default and host-packed) and
-  ``bench_eval_loop`` (sync and pipelined) on a %16-misaligned small frame
-  in f32, each frame's metrics held to JAX's ``make_eval_metrics_step`` on
-  the same weights at the fused eval's f32 limits (PERF.md section 2): PSNR
-  5e-3 dB, SSIM 1e-4. JAX's step serves bf16 by construction; the test runs
-  it in f32 by handing it the f32 hybrid forward (the JAX package is not
-  changed).
-* ``eval_fullres``'s three steps (default, host-packed, int8) through its
+* The inner loops of ``eval_fullres`` and ``bench_eval_loop`` (sync and
+  pipelined) on a %16-misaligned small frame in f32, each frame's metrics
+  held to JAX's ``make_eval_metrics_step`` on the same weights at the fused
+  eval's f32 limits (PERF.md section 2): PSNR 5e-3 dB, SSIM 1e-4; the
+  ``eval_fullres`` loop also against JAX's ``--packed`` loop, its step fed
+  the frames host-packed. JAX's step serves bf16 by construction; the test
+  runs it in f32 by handing it the f32 hybrid forward (the JAX package is
+  not changed).
+* ``eval_fullres``'s two steps (default, int8) through its
   chained timing at nf=4 on a small frame; both demos' ``main`` for 2
   steps at ``--patch 32`` on the CPU.
 """
@@ -87,9 +88,9 @@ def test_native_packers_match_jax(extras):
                                  ratio_mul=ratio_mul, **kw)
         assert got.shape == (4, 8, 8, 4) and np.array_equal(got, ref)
     for clip in (False, True):
-        got = native.pack_s2d(raw, 16383.0, 512.0, clip=clip, **kw)
-        assert got.shape == (16, 24, 16)
-        assert np.array_equal(got, jnative.pack_s2d(raw, 16383.0, 512.0, clip=clip, **kw))
+        got = native.pack_full(raw, 16383.0, 512.0, clip=clip, **kw)
+        assert got.shape == (32, 48, 4)
+        assert np.array_equal(got, jnative.pack_full(raw, 16383.0, 512.0, clip=clip, **kw))
 
 
 @needs_native
@@ -245,18 +246,16 @@ def _close_metrics(got, ref):
 
 @pytest.mark.parametrize("mode", ["default", "packed"])
 def test_eval_fullres_loop_matches_jax(params, jax_f32_step, mode):
-    frames, hr = eval_fullres.make_frames(H, W, 2, mode, torch.device("cpu"))
-    assert frames[0].shape == ((1, H, W, 4) if mode == "default" else (1, 24, 32, 16))
+    """The port's loop against JAX's step on the same frames, fed them as
+    they are (``default``) or host-packed as JAX's ``--packed`` loop feeds
+    them (``packed``: its ``pack_frame_np``, the crop taken from hr)."""
+    frames, hr = eval_fullres.make_frames(H, W, 2, torch.device("cpu"))
+    assert frames[0].shape == (1, H, W, 4)
     got = eval_fullres.run_frames(_port_f32_step(params), frames, hr)
     assert len(got) == 2
+    feed = (lambda x: x) if mode == "default" else jus2d.pack_frame_np
     for lr, m in zip(frames, got):
-        _close_metrics(m, jax_f32_step(lr.numpy(), hr.numpy()))
-    # the two modes serve the same frames: the same metrics
-    if mode == "packed":
-        plain, _ = eval_fullres.make_frames(H, W, 2, "default", torch.device("cpu"))
-        ref = eval_fullres.run_frames(_port_f32_step(params), plain, hr)
-        for a, b in zip(got, ref):
-            _close_metrics(a, b)
+        _close_metrics(m, jax_f32_step(feed(lr.numpy()), hr.numpy()))
 
 
 @pytest.mark.parametrize("pipeline", [False, True])
@@ -271,7 +270,7 @@ def test_bench_eval_loop_matches_jax(params, jax_f32_step, pipeline):
         _close_metrics({"psnr": p, "ssim": s}, ref)
 
 
-@pytest.mark.parametrize("mode", ["default", "packed", "int8"])
+@pytest.mark.parametrize("mode", ["default", "int8"])
 def test_eval_fullres_steps_and_timing_on_cpu(mode):
     """Each mode's step (int8 calibrated on the tool's U(0, 0.3)
     ``[1, 16, 712, 1064]`` frame) through the tool's chained timing, at
@@ -279,7 +278,7 @@ def test_eval_fullres_steps_and_timing_on_cpu(mode):
     net = UNetSeeInDark(nf=NF, dtype=torch.bfloat16,
                         generator=torch.Generator().manual_seed(0)).eval()
     step = eval_fullres.build_step(net, mode, torch.Generator().manual_seed(eval_fullres.CAL_SEED))
-    frames, hr = eval_fullres.make_frames(H, W, 2, mode, torch.device("cpu"))
+    frames, hr = eval_fullres.make_frames(H, W, 2, torch.device("cpu"))
     best, first_s, total = eval_fullres.time_frames(step, frames, hr, torch.device("cpu"),
                                                     repeats=1)
     ms = eval_fullres.run_frames(step, frames, hr)

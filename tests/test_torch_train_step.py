@@ -255,8 +255,5 @@ def test_step_is_deterministic_with_one_seed():
 
 def test_deep_supervision_raises():
     """ROADMAP 1.13 is ported (tests/test_torch_unet_family.py holds the step
-    against JAX): the deep-supervision step builds; the packed step, which
-    has no heads, refuses it."""
+    against JAX): the deep-supervision step builds."""
     assert make_train_step(lambda e: LR, deep_supervision=True).deep_supervision
-    with pytest.raises(ValueError, match="deep-supervision"):
-        make_train_step(lambda e: LR, deep_supervision=True, packed=True)

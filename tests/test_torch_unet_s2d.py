@@ -1,8 +1,9 @@
 """The port's space-to-depth forms (``pnnp_tpu_torch/models/unet_s2d.py``)
 against the JAX module on the same numpy inputs and weights.
 
-Counterparts of tests/test_unet_s2d.py's 8 tests, at its tolerances: the
-layout and pack functions bit-equal; the 2x2 s2d conv and the transposed
+Counterparts of tests/test_unet_s2d.py's 8 tests but its host frame pack
+(the port packs no frame on the host), at its tolerances: the layout
+functions bit-equal; the 2x2 s2d conv and the transposed
 conv's 1x1 form rtol 1e-4 / atol 1e-5; the forwards rtol 1e-3 / atol 2e-5,
 against JAX and against the port's own NCHW UNet (f32 convolutions summed
 in another order). Weights are 5x the N(0, 0.02) init (std 0.1), as JAX's
@@ -51,22 +52,6 @@ def test_s2d_roundtrip(rng):
     np.testing.assert_array_equal(P.d2s_np(P.s2d_np(x)), x)
     g4 = np.concatenate([x] * 4, -1)
     np.testing.assert_array_equal(P.d2s_np(g4), J.d2s_np(g4))
-
-
-def test_pack_frames_match_jax(rng):
-    """pack_frame_np at a shape that needs the %16 pad (reflect, split
-    pad_split's way), and pack_frame_sharded_np's frame and edge halos:
-    bit-equal; the port's packed tensor is the host frame by a permute."""
-    x = rng.uniform(0, 1, (1, 40, 56, 4)).astype(np.float32)
-    got = P.pack_frame_np(x)
-    np.testing.assert_array_equal(got, J.pack_frame_np(x))
-    assert got.shape == (1, 24, 32, 16)
-    for a, b in zip(P.pack_frame_sharded_np(x, 2, halo=8),
-                    J.pack_frame_sharded_np(x, 2, halo=8)):
-        np.testing.assert_array_equal(a, b)
-    t = torch.from_numpy(got)
-    g = P.packed_from_host(t)
-    assert g.data_ptr() == t.data_ptr() and g.is_contiguous(memory_format=torch.channels_last)
 
 
 def test_s2d_conv_matches_conv3x3(rng):
@@ -160,7 +145,7 @@ def test_packed_forward_equivalence(weights, rng):
     params, net = weights
     x = rng.uniform(0, 1, (1, 64, 96, 4)).astype(np.float32)
     tp = P.transform_params_hybrid(net, dtype=torch.float32)
-    g = P.packed_from_host(torch.from_numpy(P.s2d_np(x)))
+    g = nchw(P.s2d_np(x))
     with torch.no_grad():
         out = P.unet_hybrid_forward_packed(tp, g, dtype=torch.float32)
         ref = nhwc(net(nchw(x)))
