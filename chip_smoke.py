@@ -241,7 +241,9 @@ and no result line):
    2,048 row means (one s a value), each head's core and knot gradient
    against float64 ``_core_conv`` (``PROXY_CORE_TOL``, as
    tests/test_torch_cuda_proxy_kernel.py), two launches bit-identical, the
-   forward and the backward kernel timed against the bound of that input.
+   forward (with its sort of the values) and the backward kernel timed
+   against the bound of that input over the full grid and over the pairs
+   the kernels walked (their ``proxy.core_pairs_walked``).
    The kernels' launches are counted on every path of this script that runs
    the proxy NLL on the card (phases 5, 6, 7, 10's A/B, 15's
    ``demo_pnnp_pipeline``, 17, 12's proxy timings): each at least one of
@@ -1630,6 +1632,7 @@ def _plain_path(knots, x, s, grad):
 def _proxy_core_head(knots, x, s, g):
     """One head's checks and times (see :func:`phase_proxy_core`)."""
     import pnnp_tpu_torch.kernels.proxy_core as PC
+    from pnnp_tpu_torch.utils import profiling
 
     n, m = x.shape
     d = knots.shape[1] - 1
@@ -1650,8 +1653,20 @@ def _proxy_core_head(knots, x, s, g):
     _check(torch.equal(core, core2) and torch.equal(kn.grad, kn2.grad),
            f"proxy core at {[n, m]}: two launches differ")
     del ref_core, ref_grad, f32_core, f32_grad, core, core2
+    order = PC.order_of(x, s)
+    walked = {}
+    for kernel, fn in (("fwd", lambda: PC._forward(knots, x, s, order)),
+                       ("bwd", lambda: PC._backward(knots, x, s, g, order))):
+        profiling.reset()
+        with profiling.enable():
+            fn()
+        torch.cuda.synchronize()
+        c = profiling.snapshot()["counters"]
+        walked[kernel] = c["proxy.core_pairs_walked"] / c["proxy.core_pairs"]
+    profiling.reset()
     fwd = _loop_ms(lambda: PC._forward(knots, x, s), warmup=2, iters=20)
-    bwd = _loop_ms(lambda: PC._backward(knots, x, s, g), warmup=2, iters=20)
+    sort = _loop_ms(lambda: PC.order_of(x, s), warmup=2, iters=20)
+    bwd = _loop_ms(lambda: PC._backward(knots, x, s, g, order), warmup=2, iters=20)
     path = _loop_ms(lambda: PC.core_conv(kn, x, s).backward(g), warmup=2, iters=20)
     with torch.no_grad():
         plain_fwd = _loop_ms(lambda: _plain_path(knots, x, s, False), warmup=1, iters=1)
@@ -1661,8 +1676,11 @@ def _proxy_core_head(knots, x, s, g):
     t_ops, t_sfu = ops / FP32_FLOP_PER_S * 1e3, sfu / SFU_PER_S * 1e3
     bound = 3 * max(t_ops, t_sfu)  # the backward twice the forward
     torch.cuda.empty_cache()
+    bound_walked = bound / 3 * (walked["fwd"] + 2 * walked["bwd"])
     return {"shape": [n, m], "d": d, "s_per_value": int(s.shape[1] != 1),
-            "ms": fwd + bwd, "fwd_ms": fwd, "bwd_ms": bwd, "path_fwd_bwd_ms": path,
+            "ms": fwd + bwd, "fwd_ms": fwd, "bwd_ms": bwd, "sort_ms": sort,
+            "walked_share": walked, "bound_walked_ms": bound_walked,
+            "bound_share_walked": bound_walked / (fwd + bwd), "path_fwd_bwd_ms": path,
             "plain_ms": plain, "plain_fwd_ms": plain_fwd,
             "bound_ms": bound, "bound_fwd_ms": bound / 3, "ops": ops, "erfc_exp": sfu,
             "bound_by": "operations" if t_ops >= t_sfu else "erfc and exp",
@@ -1679,10 +1697,13 @@ def phase_proxy_core(dev):
     value). For each: the core and the knots' gradient of sum(core * g)
     against float64 ``_core_conv`` within ``PROXY_CORE_TOL``; two launches
     bit-identical; the forward and the backward kernel alone (mean of 20
-    back-to-back launches), the whole path with autograd, and the plain
-    chunked path once after a warm-up call; the bound of that input: the larger of 31 float32
+    back-to-back launches; the forward with its sort, ``sort_ms`` the sort
+    alone), the whole path with autograd, and the plain chunked path once
+    after a warm-up call; the bound of that input: the larger of 31 float32
     operations a (value, knot) pair at ``FP32_FLOP_PER_S`` and 2d + 1 erfc
-    and exp calls a value at ``SFU_PER_S``, the backward twice the forward.
+    and exp calls a value at ``SFU_PER_S``, the backward twice the forward,
+    over the full grid and (``bound_walked_ms``) over the share of pairs
+    each kernel walked (``walked_share``).
     Returns (the ``kernels`` row's fields, the largest errors)."""
     from pnnp_tpu_torch.models import QuantileHead
 
@@ -1708,15 +1729,18 @@ def phase_proxy_core(dev):
         for head in ("pixel", "row"):
             h = by_shape[f"{head}_iso{int(iso)}"]
             print(f"proxy core {head} head, ISO {int(iso)}, {h['shape']} d={h['d']}: fwd "
-                  f"{h['fwd_ms']:.3f} ms, bwd {h['bwd_ms']:.3f} ms (bound {h['bound_fwd_ms']:.3f} / "
-                  f"{2 * h['bound_fwd_ms']:.3f}, {h['bound_share']:.1%} of it), path "
+                  f"{h['fwd_ms']:.3f} ms (sort {h['sort_ms']:.3f}), bwd {h['bwd_ms']:.3f} ms "
+                  f"(bound {h['bound_fwd_ms']:.3f} / {2 * h['bound_fwd_ms']:.3f}, "
+                  f"{h['bound_share']:.1%} of it; walked {h['walked_share']}, bound "
+                  f"{h['bound_walked_ms']:.3f}, {h['bound_share_walked']:.1%} of it), path "
                   f"{h['path_fwd_bwd_ms']:.3f} ms, plain {h['plain_fwd_ms']:.2f} / "
                   f"{h['plain_ms']:.2f} ms; errors of the max {h['err_of_max']}", flush=True)
     errs = {k: max(h["err_of_max"][k] for h in by_shape.values()) for k in ("core", "knot_grad")}
     main = by_shape[f"pixel_iso{int(PROXY_CORE_ISOS[0])}"]
     row = {"shape": [1, 4, PATCH, PATCH], "d": PROXY_D,
-           **{k: main[k] for k in ("ms", "fwd_ms", "bwd_ms", "plain_ms", "bound_ms", "bound_by",
-                                   "bound_share")},
+           **{k: main[k] for k in ("ms", "fwd_ms", "bwd_ms", "sort_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "bound_share", "walked_share",
+                                   "bound_walked_ms", "bound_share_walked")},
            # no PyTorch call computes the Gaussian-convolved bin law
            "library_ms": None, "by_shape": by_shape}
     return row, errs

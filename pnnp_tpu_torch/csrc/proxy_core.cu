@@ -23,11 +23,33 @@
 // and expf (no fast math); r is formed as (v - x) inv, one rounding fewer
 // than _core_conv's -x inv + v inv.
 //
+// Reach. Most terms are exact zeros: a bin whose two knots both lie at
+// r >= REACH, or both at r <= -REACH, adds +0.0 or -0.0 in every branch, to
+// the core and to both knots' gradients. Proof, REACH = 10.5: erfc(10.5) =
+// 7.0e-50 and exp(-10.5^2) = 1.3e-48, far below half the least f32
+// subnormal (2^-150 = 7.0e-46), so erfcf(|r|) = 0 and expf(-r^2) = 0 for
+// |r| >= REACH (tests/test_torch_cuda_proxy_kernel.py holds this on the
+// card, from REACH to 1e30). Wide bin: e_k = e_{k+1} = 0, so mass2 = +-0;
+// in the backward also x_k = expf(-r_k^2) = 0, so ga = gb = +-0. Narrow
+// bin: |mid| >= REACH (0.5 (ra + rb) rounds monotonically), expf(-m2) = 0,
+// so the density and both gradients are +-0 (for |r| < 1.8e19, where m2
+// stays finite). A sum that starts at +0.0 is never -0.0, and adding +-0.0
+// to it changes no bit, so leaving such terms out changes nothing.
+//
+// The values come sorted. Where s is one value per example (the pixel
+// head), the launcher sorts each example's values (torch.sort, stable) and
+// hands the kernels the sorted values and their places (perm): a block of
+// neighbouring values then has few bins within reach, and a bin few values.
+// Where s varies per value (the row head: 2,048 values, which the launcher
+// already splits over bins) nothing is sorted and every pair is walked.
+//
 // Bound: arithmetic, nothing else. Forward 31 operations a (value, knot)
 // pair by the benchmark's count (portbench/counts.py), one erfc and one exp,
-// 1.07e9 pairs: 0.5 ms at 67 TFLOP/s, 0.5 ms of erfc and exp calls at the
-// card's special-function rate (16 a clock per SM); the backward about twice
-// that. Inputs and outputs are a few MB.
+// over the pairs walked: at the recipe shape the full grid is 1.07e9 pairs,
+// 0.5 ms at 67 TFLOP/s and 0.5 ms of erfc and exp calls at the card's
+// special-function rate (16 a clock per SM), of which the windows below walk
+// about a third to a half; the backward about twice that. Inputs and outputs
+// are a few MB.
 //
 // * proxy_core_fwd_kernel, value-major: a block covers 512 values of one
 //   example (4 a thread, coalesced) and stages the example's knots in tiles
@@ -42,9 +64,24 @@
 //   narrow test is made per pair. Each value's sum is taken in f32 in
 //   groups of FOLD bins, the groups added in f32 (split accumulators: no
 //   sum runs over more than d / FOLD + FOLD terms); only the core reaches
-//   memory. Where the values are too few to fill the card (the row head's
-//   2,048 are 4 blocks), the bins are split over blocks too, and
-//   proxy_core_sum_kernel adds the splits' sums in order.
+//   memory, at the value's own place. Where the values are too few to fill
+//   the card (the row head's 2,048 are 4 blocks), the bins are split over
+//   blocks too, and proxy_core_sum_kernel adds the splits' sums in order.
+//   Window (one s per example): the block takes its values' least and
+//   largest (a NaN value widens them to +-inf), marks each bin of its split
+//   whose two knots are not both beyond REACH on one side of both (r is
+//   monotone in x, so then of every value between them), and walks only from
+//   its first such bin to its last. Each value's core is bit for bit the
+//   full walk's, whatever the other values of its block: before the first
+//   walked bin the full walk's sums hold +0.0 (its terms there are +-0.0 and
+//   a sum that starts at +0.0 is never -0.0), as the window's start; the
+//   FOLD groups stay keyed by bin index, so each walked term meets the same
+//   sums in the same order; the first walked knot's r and erfc are computed
+//   as the full walk computes them; after the last walked bin the full walk
+//   folds tot + acc at a group's end and adds only +-0.0, which the window's
+//   final tot + acc equals. So the window needs no widening to FOLD
+//   boundaries. The scan costs 2 r a bin per block, next to 512 a bin for
+//   the walk.
 //
 // * proxy_core_bwd_kernel, knot-major: given g = dL/dcore [n, m], the knot
 //   gradient. A warp owns WARP_BINS = 31 consecutive bins: lane l computes r,
@@ -58,10 +95,21 @@
 //   is wide and the midpoint series only for its narrow bins. Lanes diverge
 //   where a warp holds both kinds. No gradient for x or s: no caller
 //   differentiates them (the launcher routes such a call to the plain path).
+//   Run (one s per example): the values come sorted, so those within REACH
+//   of a warp's 32 knots (of their least and largest) are one contiguous
+//   run, found by two binary searches over the split's values; the warp
+//   walks only that run, the block stages only the union of its warps' runs,
+//   and g is read through perm. A split outside every run still writes its
+//   (zero) partials.
 //
-// Determinism: no atomics. The backward writes one partial per (split, bin)
-// and side; proxy_core_grad_kernel sums them over the splits in a fixed
-// order in double, so the gradient is bit-identical from launch to launch.
+// Determinism: no atomics in the law. The backward writes one partial per
+// (split, bin) and side; proxy_core_grad_kernel sums them over the splits in
+// a fixed order in double (GRAD_WARPS warps a knot, each over every
+// GRAD_WARPS-th split, then the warps' sums in order), so the gradient is
+// bit-identical from launch to launch (its f32 sums run over the values in
+// sorted order). Each block adds
+// the pairs it walked to `walked` (one integer atomicAdd, where the
+// launcher passes a counter: only while tracing, or into a CUDA graph).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,10 +122,12 @@ constexpr float RSQPI = 0.564189583547756287f;      // 1 / sqrt(pi)
 constexpr float TWO_RSQPI = 1.12837916709551257f;   // 2 / sqrt(pi): -d erfc(r) / dr at 0
 constexpr float NARROW_BIN = 0.05f;                 // models/proxy.py NARROW_BIN
 constexpr float WIDTH_FLOOR = 1e-8f;
+constexpr float REACH = 10.5f;  // |r| past which every term is exactly 0 (header)
 
 constexpr int FWD_THREADS = 128;
 constexpr int FWD_VALUES = 4;                            // values a thread
 constexpr int FWD_BLOCK_VALUES = FWD_THREADS * FWD_VALUES;
+constexpr int FWD_WARPS = FWD_THREADS / 32;
 constexpr int KNOT_TILE = 1024;                          // bins staged at once
 constexpr int FOLD = 32;                                 // bins a group of the f32 sum
 constexpr int BWD_WARPS = 4;
@@ -86,12 +136,47 @@ constexpr int WARP_BINS = 31;                            // lane 31 is the halo 
 constexpr int BLOCK_BINS = WARP_BINS * BWD_WARPS;
 constexpr int CHUNK = BWD_THREADS;                       // values staged at once
 constexpr int FINAL_THREADS = 256;
+constexpr int GRAD_WARPS = 16;                           // warps a knot's final sum
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int BIN_NARROW = 1;  // flags of a staged knot (its bin, itself)
 constexpr int KNOT_ERFC = 2;
 
 __device__ __forceinline__ float inv_of(float s) { return (1.0f / s) * RSQ2; }
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// Where knot v lies for every value between lo and hi (r is monotone in x):
+// 1 at r >= REACH of both, -1 at r <= -REACH of both, else 0. A bin adds
+// exactly 0 for all of them where its two knots lie on one side (header).
+__device__ __forceinline__ int knot_side(float v, float lo, float hi, float inv) {
+  const float a = (v - lo) * inv, b = (v - hi) * inv;
+  if (a >= REACH && b >= REACH) return 1;
+  return (a <= -REACH && b <= -REACH) ? -1 : 0;
+}
+
+// The least of a and the largest of b over the block's NW warps, in every
+// thread; red holds 2 NW of T.
+template <int NW, typename T>
+__device__ __forceinline__ void block_min_max(T& a, T& b, T* red) {
+  for (int o = 16; o; o >>= 1) {
+    a = min(a, __shfl_xor_sync(FULL, a, o));
+    b = max(b, __shfl_xor_sync(FULL, b, o));
+  }
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[w] = a;
+    red[NW + w] = b;
+  }
+  __syncthreads();
+  a = red[0];
+  b = red[NW];
+  for (int i = 1; i < NW; ++i) {
+    a = min(a, red[i]);
+    b = max(b, red[NW + i]);
+  }
+  __syncthreads();  // red may be written again
+}
 
 // h^2 / 24 of a bin, h clamped at NARROW_BIN as _core_conv clamps it.
 __device__ __forceinline__ float hs2_of(float h) {
@@ -175,9 +260,12 @@ __device__ void stage_tile(float4* tile, const float* kn, int t0, int nb, int d,
 template <bool PV>
 __global__ void __launch_bounds__(FWD_THREADS)
 proxy_core_fwd_kernel(const float* __restrict__ knots, const float* __restrict__ x,
-                      const float* __restrict__ s, int m, int d, int split_bins,
-                      float* __restrict__ partials, float* __restrict__ core) {
+                      const long long* __restrict__ perm, const float* __restrict__ s, int m,
+                      int d, int split_bins, float* __restrict__ partials,
+                      float* __restrict__ core, unsigned long long* __restrict__ walked) {
   __shared__ float4 tile[KNOT_TILE + 1];
+  __shared__ float xred[2 * FWD_WARPS];
+  __shared__ int bred[2 * FWD_WARPS];
   const int ex = blockIdx.z, ks = blockIdx.y, splits = gridDim.y;
   const float* kn = knots + (size_t)ex * (d + 1);
   const size_t row = (size_t)ex * m;
@@ -198,8 +286,38 @@ proxy_core_fwd_kernel(const float* __restrict__ knots, const float* __restrict__
     acc[j] = tot[j] = 0.0f;
   }
 
-  for (int t0 = b0; t0 < b1; t0 += KNOT_TILE) {
-    const int nb = min(KNOT_TILE, b1 - t0);
+  // the bins this block walks, [w0, w1): every bin of its split where s
+  // varies per value, else its window (header)
+  int w0 = b0, w1 = b1;
+  if (!PV) {
+    float lo = inf_f(), hi = -inf_f();
+#pragma unroll
+    for (int j = 0; j < FWD_VALUES; ++j) {
+      if (v0 + j * FWD_THREADS >= m) continue;
+      const bool nan = xv[j] != xv[j];
+      lo = nan ? -inf_f() : fminf(lo, xv[j]);
+      hi = nan ? inf_f() : fmaxf(hi, xv[j]);
+    }
+    block_min_max<FWD_WARPS>(lo, hi, xred);
+    int first = d, last = -1;  // the block's bins that may add a nonzero term
+    for (int k = b0 + threadIdx.x; k < b1; k += FWD_THREADS) {
+      const int sa = knot_side(kn[k], lo, hi, inv_ex);
+      if (sa == 0 || sa != knot_side(kn[k + 1], lo, hi, inv_ex)) {
+        first = min(first, k);
+        last = k;
+      }
+    }
+    block_min_max<FWD_WARPS>(first, last, bred);
+    w0 = last < first ? b0 : first;  // no such bin: every term is 0
+    w1 = last + 1 > w0 ? last + 1 : w0;
+  }
+  if (walked != nullptr && threadIdx.x == 0)
+    atomicAdd(walked, (unsigned long long)min(FWD_BLOCK_VALUES, m - (int)blockIdx.x *
+                                                                   FWD_BLOCK_VALUES) *
+                          (unsigned long long)(w1 - w0));
+
+  for (int t0 = w0; t0 < w1; t0 += KNOT_TILE) {
+    const int nb = min(KNOT_TILE, w1 - t0);
     __syncthreads();  // the last tile's reads are done
     stage_tile<PV>(tile, kn, t0, nb, d, sq2inv[0]);
     __syncthreads();
@@ -248,10 +366,11 @@ proxy_core_fwd_kernel(const float* __restrict__ knots, const float* __restrict__
   for (int j = 0; j < FWD_VALUES; ++j) {
     const int v = v0 + j * FWD_THREADS;
     if (v >= m) continue;
+    const size_t at = perm != nullptr ? (size_t)perm[row + v] : (size_t)v;  // its place
     if (splits == 1)
-      core[row + v] = (tot[j] + acc[j]) / (float)d;
+      core[row + at] = (tot[j] + acc[j]) / (float)d;
     else
-      partials[((size_t)ex * splits + ks) * m + v] = tot[j] + acc[j];
+      partials[((size_t)ex * splits + ks) * m + at] = tot[j] + acc[j];
   }
 }
 
@@ -273,9 +392,12 @@ proxy_core_sum_kernel(const float* __restrict__ partials, int splits, int m, int
 template <bool PV>
 __global__ void __launch_bounds__(BWD_THREADS)
 proxy_core_bwd_kernel(const float* __restrict__ knots, const float* __restrict__ x,
-                      const float* __restrict__ s, const float* __restrict__ g, int m, int d,
-                      int split_values, double* __restrict__ partials) {
+                      const long long* __restrict__ perm, const float* __restrict__ s,
+                      const float* __restrict__ g, int m, int d, int split_values,
+                      double* __restrict__ partials, unsigned long long* __restrict__ walked) {
   __shared__ float4 vals[CHUNK];
+  __shared__ int runs[2 * BWD_WARPS];
+  __shared__ unsigned long long pairs[BWD_WARPS];
   const int ex = blockIdx.z, split = blockIdx.y, splits = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int k = blockIdx.x * BLOCK_BINS + warp * WARP_BINS + lane;  // this lane's knot
@@ -301,23 +423,70 @@ proxy_core_bwd_kernel(const float* __restrict__ knots, const float* __restrict__
     wide = owns && !(h < NARROW_BIN);
   }
   const bool any_wide = PV || __any_sync(FULL, wide);
-  const bool warp_owns = __any_sync(FULL, owns);  // the last block's last warps own none
+  const int owned = __popc(__ballot_sync(FULL, owns));
+  const bool warp_owns = owned > 0;  // the last block's last warps own none
 
   const int v_begin = split * split_values;
   const int v_end = min(m, v_begin + split_values);
+  // this warp's values, [rb, re): the whole split where s varies per value,
+  // else the run of sorted values within REACH of its knots (header)
+  int rb = v_begin, re = v_end;
+  if (!PV && warp_owns) {
+    float kmin = kj, kmax = kj;
+    for (int o = 16; o; o >>= 1) {
+      kmin = fminf(kmin, __shfl_xor_sync(FULL, kmin, o));
+      kmax = fmaxf(kmax, __shfl_xor_sync(FULL, kmax, o));
+    }
+    if (!__any_sync(FULL, kj != kj) && inv > 0.0f) {
+      const float* xr = x + row;
+      // the values below reach of every knot come first (a NaN value last)
+      int a = v_begin, b = v_end;
+      while (a < b) {
+        const int mid = (a + b) >> 1;
+        if ((kmin - xr[mid]) * inv >= REACH) a = mid + 1; else b = mid;
+      }
+      rb = a;
+      // then those past reach of every knot, where the split ends in one
+      if ((kmax - xr[v_end - 1]) * inv <= -REACH) {
+        b = v_end;
+        while (a < b) {
+          const int mid = (a + b) >> 1;
+          if ((kmax - xr[mid]) * inv <= -REACH) b = mid; else a = mid + 1;
+        }
+        re = a;
+      }
+    }
+  }
+  if (lane == 0) {
+    runs[warp] = warp_owns ? rb : v_end;
+    runs[BWD_WARPS + warp] = warp_owns ? re : v_begin;
+    pairs[warp] = (unsigned long long)owned * (unsigned long long)(re - rb);
+  }
+  __syncthreads();
+  int blo = v_end, bhi = v_begin;  // the values the block stages
+  unsigned long long block_pairs = 0;
+  for (int i = 0; i < BWD_WARPS; ++i) {
+    blo = min(blo, runs[i]);
+    bhi = max(bhi, runs[BWD_WARPS + i]);
+    block_pairs += pairs[i];
+  }
+  if (walked != nullptr && threadIdx.x == 0) atomicAdd(walked, block_pairs);
+
   double da = 0.0, db = 0.0;
-  for (int c0 = v_begin; c0 < v_end; c0 += CHUNK) {
-    const int nv = min(CHUNK, v_end - c0);
+  for (int c0 = blo; c0 < bhi; c0 += CHUNK) {
+    const int nv = min(CHUNK, bhi - c0);
     __syncthreads();  // the last chunk's reads are done
     if (threadIdx.x < nv) {
       const size_t v = row + c0 + threadIdx.x;
-      vals[threadIdx.x] = make_float4(x[v], g[v], PV ? inv_of(s[v]) : 0.0f, 0.0f);
+      const size_t at = perm != nullptr ? row + (size_t)perm[v] : v;  // its place
+      vals[threadIdx.x] = make_float4(x[v], g[at], PV ? inv_of(s[v]) : 0.0f, 0.0f);
     }
     __syncthreads();
-    if (!warp_owns) continue;
+    const int i0 = max(0, rb - c0), i1 = min(nv, re - c0);
+    if (!warp_owns || i0 >= i1) continue;
     float fa = 0.0f, fb = 0.0f;
 #pragma unroll 2
-    for (int i = 0; i < nv; ++i) {
+    for (int i = i0; i < i1; ++i) {
       const float4 v = vals[i];
       if (PV) {
         inv = v.z;
@@ -364,21 +533,32 @@ proxy_core_bwd_kernel(const float* __restrict__ knots, const float* __restrict__
 }
 
 // dL/dv_k = (sum over splits of side 0 at bin k and side 1 at bin k - 1) / d,
-// in a fixed order, in double.
-__global__ void __launch_bounds__(FINAL_THREADS)
+// in double, in a fixed order: a block takes 32 knots, a lane each; warp w
+// sums splits w, w + GRAD_WARPS, ... in order, and lane k of warp 0 adds the
+// warps' sums in warp order. (One thread a knot walking every split kept too
+// few loads in flight: 0.13-0.16 ms at the recipe's 911 splits.)
+__global__ void __launch_bounds__(32 * GRAD_WARPS)
 proxy_core_grad_kernel(const double* __restrict__ partials, int splits, int d,
                        float* __restrict__ grad) {
+  __shared__ double part[GRAD_WARPS][32];
   const int ex = blockIdx.y;
-  const int k = blockIdx.x * FINAL_THREADS + threadIdx.x;
-  if (k > d) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * 32 + lane;
   const double* lo = partials + (size_t)ex * 2 * splits * d;
   const double* hi = lo + (size_t)splits * d;
   double t = 0.0;
-  for (int sp = 0; sp < splits; ++sp) {
-    if (k < d) t += lo[(size_t)sp * d + k];
-    if (k > 0) t += hi[(size_t)sp * d + k - 1];
+  if (k <= d) {
+    for (int sp = warp; sp < splits; sp += GRAD_WARPS) {
+      if (k < d) t += lo[(size_t)sp * d + k];
+      if (k > 0) t += hi[(size_t)sp * d + k - 1];
+    }
   }
-  grad[(size_t)ex * (d + 1) + k] = (float)(t / d);
+  part[warp][lane] = t;
+  __syncthreads();
+  if (warp != 0 || k > d) return;
+  double sum = 0.0;
+  for (int w = 0; w < GRAD_WARPS; ++w) sum += part[w][lane];
+  grad[(size_t)ex * (d + 1) + k] = (float)(sum / d);
 }
 
 }  // namespace
@@ -386,20 +566,26 @@ proxy_core_grad_kernel(const double* __restrict__ partials, int splits, int d,
 extern "C" {
 
 // core[n, m] of knots [n, d+1], x [n, m] and s ([n] if s_per_value == 0,
-// else [n, m]), all f32 contiguous, on `stream`. The bins are cut into
-// `splits` of `split_bins` (the last may be shorter); with more than one,
-// `partials` holds n * splits * m floats. Returns cudaGetLastError().
-int pnnp_proxy_core_fwd(const float* knots, const float* x, const float* s, int n, int m,
-                        int d, int s_per_value, int splits, int split_bins, float* partials,
-                        float* core, void* stream) {
+// else [n, m]), all f32 contiguous, on `stream`. perm (int64 [n, m], or
+// null) gives each value's place in core: x is then each example's values
+// in sorted order. The bins are cut into `splits` of `split_bins` (the last
+// may be shorter); with more than one, `partials` holds n * splits * m
+// floats. Adds the pairs walked to *walked unless it is null. Returns
+// cudaGetLastError().
+int pnnp_proxy_core_fwd(const float* knots, const float* x, const long long* perm,
+                        const float* s, int n, int m, int d, int s_per_value, int splits,
+                        int split_bins, float* partials, float* core,
+                        unsigned long long* walked, void* stream) {
   const dim3 grid((m + FWD_BLOCK_VALUES - 1) / FWD_BLOCK_VALUES, splits, n);
   cudaStream_t st = (cudaStream_t)stream;
   if (s_per_value)
-    proxy_core_fwd_kernel<true><<<grid, FWD_THREADS, 0, st>>>(knots, x, s, m, d, split_bins,
-                                                              partials, core);
+    proxy_core_fwd_kernel<true><<<grid, FWD_THREADS, 0, st>>>(knots, x, perm, s, m, d,
+                                                              split_bins, partials, core,
+                                                              walked);
   else
-    proxy_core_fwd_kernel<false><<<grid, FWD_THREADS, 0, st>>>(knots, x, s, m, d, split_bins,
-                                                               partials, core);
+    proxy_core_fwd_kernel<false><<<grid, FWD_THREADS, 0, st>>>(knots, x, perm, s, m, d,
+                                                               split_bins, partials, core,
+                                                               walked);
   if (splits > 1) {
     const dim3 fgrid((m + FINAL_THREADS - 1) / FINAL_THREADS, n);
     proxy_core_sum_kernel<<<fgrid, FINAL_THREADS, 0, st>>>(partials, splits, m, d, core);
@@ -407,23 +593,26 @@ int pnnp_proxy_core_fwd(const float* knots, const float* x, const float* s, int 
   return (int)cudaGetLastError();
 }
 
-// grad[n, d+1] = dL/dknots from g = dL/dcore [n, m], on `stream`. The values
-// of each example are cut into `splits` of `split_values` (the last may be
-// shorter); `partials` holds n * 2 * splits * d doubles. Returns
-// cudaGetLastError() after both launches.
-int pnnp_proxy_core_bwd(const float* knots, const float* x, const float* s, const float* g,
-                        int n, int m, int d, int s_per_value, int splits, int split_values,
-                        double* partials, float* grad, void* stream) {
+// grad[n, d+1] = dL/dknots from g = dL/dcore [n, m], on `stream`; x and perm
+// as for pnnp_proxy_core_fwd (g is read at each value's place), x sorted
+// where s_per_value == 0. The values of each example are cut into `splits`
+// of `split_values` (the last may be shorter); `partials` holds n * 2 *
+// splits * d doubles. Adds the pairs walked to *walked unless it is null.
+// Returns cudaGetLastError() after both launches.
+int pnnp_proxy_core_bwd(const float* knots, const float* x, const long long* perm,
+                        const float* s, const float* g, int n, int m, int d, int s_per_value,
+                        int splits, int split_values, double* partials, float* grad,
+                        unsigned long long* walked, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((d + BLOCK_BINS - 1) / BLOCK_BINS, splits, n);
   if (s_per_value)
-    proxy_core_bwd_kernel<true><<<grid, BWD_THREADS, 0, st>>>(knots, x, s, g, m, d,
-                                                              split_values, partials);
+    proxy_core_bwd_kernel<true><<<grid, BWD_THREADS, 0, st>>>(knots, x, perm, s, g, m, d,
+                                                              split_values, partials, walked);
   else
-    proxy_core_bwd_kernel<false><<<grid, BWD_THREADS, 0, st>>>(knots, x, s, g, m, d,
-                                                               split_values, partials);
-  const dim3 fgrid((d + 1 + FINAL_THREADS - 1) / FINAL_THREADS, n);
-  proxy_core_grad_kernel<<<fgrid, FINAL_THREADS, 0, st>>>(partials, splits, d, grad);
+    proxy_core_bwd_kernel<false><<<grid, BWD_THREADS, 0, st>>>(knots, x, perm, s, g, m, d,
+                                                               split_values, partials, walked);
+  const dim3 fgrid((d + 1 + 31) / 32, n);
+  proxy_core_grad_kernel<<<fgrid, 32 * GRAD_WARPS, 0, st>>>(partials, splits, d, grad);
   return (int)cudaGetLastError();
 }
 

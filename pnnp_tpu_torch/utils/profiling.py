@@ -2,7 +2,9 @@
 ``pnnp_tpu/utils/profiling.py``).
 
 :func:`span` names a region of the program's work and :func:`count` adds to
-a named counter. Both record only while tracing is on: while :func:`enable`
+a named counter; :func:`count_device` adds a count that only the device
+knows yet (a 0-dim integer tensor), read when :func:`snapshot` is. All three
+record only while tracing is on: while :func:`enable`
 is in force, or while a ``torch.profiler`` profile records. The second reads
 ``torch.autograd.profiler._is_profiler_enabled``, one module attribute that
 every thread sees, the data loader's workers included. Off, a span costs that
@@ -49,6 +51,7 @@ DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LOCK = threading.Lock()
 _RECORDS: deque = deque(maxlen=CAPACITY)
 _COUNTERS: dict = {}
+_PENDING: list = []  # (counter, 0-dim device tensor) of count_device, unread
 _DROPPED = [0]
 _FORCED = [0]
 _IDS = itertools.count(1)
@@ -156,13 +159,29 @@ def count(name: str, n: int = 1) -> None:
         _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
 
+def count_device(name: str, t: torch.Tensor) -> None:
+    """Add the value of the 0-dim integer tensor ``t`` to counter ``name``
+    while tracing is on. Nothing syncs here: :func:`snapshot` reads ``t``,
+    so the caller must not write it again."""
+    if not (_FORCED[0] or _autograd_profiler._is_profiler_enabled):
+        return
+    with _LOCK:
+        _PENDING.append((name, t))
+
+
 def snapshot() -> dict:
     """The recorded spans, oldest first (each a dict: ``name``, ``id``,
     ``parent``, ``tid``, ``thread``, ``t0_ns``, ``t1_ns``, ``cpu_ns``,
     ``device_ms`` for a device span, ``attrs``), the counters and the
-    number of spans dropped. Device spans' events are read here: call it
-    after the work has been synchronised."""
+    number of spans dropped. Device spans' events and :func:`count_device`'s
+    tensors are read here: call it after the work has been synchronised."""
     with _LOCK:
+        pending = list(_PENDING)
+        _PENDING.clear()
+    counts = [(name, int(t)) for name, t in pending]
+    with _LOCK:
+        for name, k in counts:
+            _COUNTERS[name] = _COUNTERS.get(name, 0) + k
         records = list(_RECORDS)
         counters = dict(_COUNTERS)
         dropped = _DROPPED[0]
@@ -174,6 +193,7 @@ def reset() -> None:
     with _LOCK:
         _RECORDS.clear()
         _COUNTERS.clear()
+        _PENDING.clear()
         _DROPPED[0] = 0
 
 

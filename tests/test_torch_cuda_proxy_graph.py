@@ -113,6 +113,10 @@ def test_graphed_steps_equal_the_eager_steps_bit_for_bit(card, clip_norm):
     assert counters_e["proxy.graph_eager"] == 8 and "proxy.graph_captures" not in counters_e
     assert counters_e["proxy.core_fwd"] == counters_e["proxy.core_bwd"] == 2 * 8
     assert "proxy.chunks" not in counters
+    # the replays count the pairs their kernels walked as the eager steps do
+    assert counters["proxy.core_pairs"] == counters_e["proxy.core_pairs"]
+    assert counters["proxy.core_pairs_walked"] == counters_e["proxy.core_pairs_walked"]
+    assert 0 < counters["proxy.core_pairs_walked"] <= counters["proxy.core_pairs"]
 
 
 @pytest.mark.cuda

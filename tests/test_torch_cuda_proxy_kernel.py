@@ -14,7 +14,12 @@ of 1e-9 and 4000, all-narrow, all-wide and mixed bins, zero-width bins on
 the 1e-8 floor and one ``s`` per value (the row head): the core within 1e-5
 and the gradient within 5e-4 of their largest magnitudes, and neither
 further from float64 than twice the plain f32 path plus 1e-6. Two launches
-give the same bits; the counters show the kernels engaged and no chunks;
+give the same bits; a value's core is the same bits whatever its block's
+values (shuffled, or near and far neighbours: a narrow window and the full
+walk); erfc and exp(-r^2) are exactly 0 in f32 from ``REACH`` on; the
+counters show the kernels engaged and no chunks, and the pairs walked
+(below the full grid at the recipe shape, equal to the plain-torch rule's
+count, and the full grid where every value is within reach of every knot);
 three ``make_proxy_train_step`` steps on the card follow the CPU's.
 """
 
@@ -175,12 +180,53 @@ def test_launches_are_bit_identical(card, name):
 
 
 @pytest.mark.cuda
+def test_reach_underflows_in_f32(card):
+    """The proof of REACH (csrc/proxy_core.cu's header): erfc(t) and
+    exp(-t^2) are exactly 0 in f32 on the card for every t from REACH on."""
+    t = torch.cat([torch.linspace(PC.REACH, 40.0, 200_001, device=card),
+                   torch.logspace(1.5, 30, 10_001, device=card),
+                   torch.tensor([PC.REACH, float("inf")], device=card)])
+    assert t.dtype == torch.float32 and float(t.min()) == PC.REACH
+    assert torch.count_nonzero(torch.special.erfc(t)) == 0
+    assert torch.count_nonzero(torch.exp(-t * t)) == 0
+    assert float(torch.special.erfc(torch.tensor(9.5, device=card))) > 0
+
+
+def _probes_among(knots, s, probes, company):
+    """The forward's core of each of ``probes`` ``[k]`` computed in an
+    example of its own among 511 other values: 'near' (the probe plus up to
+    1e-3 ADU, a window as narrow as its own), 'far' (1e4 ADU to both sides
+    of the knots: every bin walked), or alone."""
+    k = probes.shape[0]
+    kn = knots[:1].expand(k, -1).contiguous()
+    sk = s[:1, :1].expand(k, 1).contiguous()
+    if company == "alone":
+        return PC._forward(kn, probes[:, None].contiguous(), sk)[:, 0]
+    j = torch.arange(1, 512, device=knots.device)
+    if company == "near":
+        others = probes[:, None] + 1e-3 * j / 512
+    else:
+        others = torch.where(j % 2 == 0, -1.0, 1.0) * (1e4 + j) + 0 * probes[:, None]
+    x = torch.cat([probes[:, None], others], 1).contiguous()
+    return PC._forward(kn, x, sk)[:, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("company", ["shuffled", "near_and_far"])
 @pytest.mark.parametrize("name", ["recipe", "far_outside", "knot_tiles", "mixed"])
-def test_a_values_core_does_not_depend_on_the_others(card, name):
+def test_a_values_core_does_not_depend_on_the_others(card, name, company):
     """The forward kernel on the values in one order and in a shuffled
     order gives the same bits for every value (each walks its knots alone);
-    the backward agrees to f32 rounding (its sums run in another order)."""
+    the backward agrees to f32 rounding (its sums run in another order).
+    A value among near neighbours (its block's window as narrow as its own),
+    among far ones (the full walk) and alone: the same bits."""
     knots, x, s, g = _case(name, card, seed=5)
+    if company == "near_and_far":
+        gen = torch.Generator(device=card).manual_seed(9)
+        probes = x[0, torch.randint(0, x.shape[1], (256,), generator=gen, device=card)]
+        near, far, alone = (_probes_among(knots, s, probes, c) for c in ("near", "far", "alone"))
+        assert torch.equal(near, far) and torch.equal(near, alone)
+        return
     gen = torch.Generator(device=card).manual_seed(9)
     order = torch.argsort(torch.rand(x.shape, generator=gen, device=card), dim=1)
     shuf = torch.gather(x, 1, order)
@@ -214,6 +260,44 @@ def test_counters_show_the_kernels_and_no_chunks(card):
     assert "proxy.chunks" not in counters
     assert PC.launches_by_kernel["fwd"] == before["fwd"] + 1
     assert PC.launches_by_kernel["bwd"] == before["bwd"] + 1
+
+
+def _walked(knots, x, s, g):
+    profiling.reset()
+    with profiling.enable():
+        PC._forward(knots, x, s)
+        PC._backward(knots, x, s, g)
+    torch.cuda.synchronize()
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    return counters["proxy.core_pairs_walked"], counters["proxy.core_pairs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["recipe", "far_outside", "bin_splits", "all_wide"])
+def test_walked_pairs_are_the_rules(card, name):
+    """The kernels count the pairs the plain-torch rule (``fwd_windows``,
+    ``bwd_runs``) says they walk; at these cases fewer than the full grid."""
+    knots, x, s, g = _case(name, card)
+    walked, pairs = _walked(knots, x, s, g)
+    n, m = x.shape
+    assert pairs == 2 * n * m * (knots.shape[1] - 1)
+    xs, _ = PC.order_of(x, s)
+    fwd, bwd = PC.walked_pairs(knots.cpu(), xs.cpu(), s.cpu())
+    assert walked == fwd + bwd
+    assert walked < pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["recipe", "row_head"])
+def test_walked_pairs_are_the_full_grid_within_reach(card, name):
+    """Every value within reach of every knot (s = 4000 ADU), or one s per
+    value (the row head's walk): every pair walked."""
+    knots, x, s, g = _case(name, card)
+    if name == "recipe":
+        s = torch.full_like(s, 4000.0)
+    walked, pairs = _walked(knots, x, s, g)
+    assert walked == pairs == 2 * x.numel() * (knots.shape[1] - 1)
 
 
 @pytest.mark.cuda

@@ -7,10 +7,20 @@ Here:
 * the launcher's plan (``kernels/proxy_core.py::plan``): the forward's value
   tiles and knot tiles with their halo, the backward's warps of 31 bins with
   a halo knot and its splits of the values, cover every (value, bin) pair
-  of every example exactly once and every knot where a bin needs it, and
-  the partials' layout gives each (example, side, split, bin) its own slot,
-  which the final sum reads for both neighbours of every knot; the plan's
-  constants are the source's;
+  of every example exactly once and every knot where a bin needs it, or,
+  with the windows and runs of sorted values, every pair inside them once,
+  as many as the kernels count walked; the partials' layout gives each
+  (example, side, split, bin) its own slot, which the final sum reads for
+  both neighbours of every knot; the plan's constants are the source's;
+* the window rule in plain torch (``fwd_windows``, ``bwd_runs``): every
+  (value, bin) pair whose term in ``_core_conv``'s f32 arithmetic, or whose
+  knot gradient by the backward's formulas, is nonzero lies inside its
+  block's window and its warp's run, on narrow and wide bins, values
+  outside the knots and ties, several examples and ragged blocks, and the
+  recipe shape sampled; the forward's walk in its FOLD groups gives each
+  value's sum bit for bit over its window as over every bin;
+* the tracer's device counts (``count_device``) and the walked-pair
+  counters of a replayed graph, and ``core_walked_share.proxy`` reading them;
 * the backward's formulas, transcribed line for line (``core_grad_plain``),
   equal autograd of ``QuantileHead._core_conv``, both in float64, on
   narrow, wide and mixed bins, values on both sides of and far outside the
@@ -39,15 +49,17 @@ PLAN_SHAPES = [(1, 1, 1), (1, 5, 3), (2, 511, 30), (1, 513, 31), (3, 300, 124),
                (1, 50, 2049), (4, 9, 1024), (8, 256, 64), (1, 3, 4100)]
 
 
-def _pairs_fwd(p):
+def _pairs_fwd(p, windows=None):
     """(example, value, knot) triples the forward computes r and erfc for,
-    and (example, value, bin) triples it sums."""
+    and (example, value, bin) triples it sums; with ``windows``
+    (``fwd_windows``) only those of each block's window."""
     knots, bins = Counter(), Counter()
     for ex in range(p.n):
         for b in range(p.fwd_blocks):
             vals = p.fwd_values(b)
             for ks in range(p.knot_splits):
-                for tile in p.knot_tiles(ks):
+                win = None if windows is None else range(*windows[ex, b, ks].tolist())
+                for tile in p.knot_tiles(ks, win):
                     for v in vals:
                         for k in p.walked_knots(ks, tile):
                             knots[ex, v, k] += 1
@@ -56,9 +68,9 @@ def _pairs_fwd(p):
     return knots, bins
 
 
-def _pairs_bwd(p):
+def _pairs_bwd(p, runs=None):
     """(example, value, bin) triples the backward sums, and the partial
-    slots it writes."""
+    slots it writes; with ``runs`` (``bwd_runs``) only each warp's run."""
     bins, slots = Counter(), Counter()
     for ex in range(p.n):
         for split in range(p.splits):
@@ -68,14 +80,49 @@ def _pairs_bwd(p):
                 for w in range(PC.BWD_WARPS):
                     ks = p.warp_knots(kb, w)
                     owned = p.warp_bins(kb, w)
+                    run = vals if runs is None else range(*runs[ex, split, kb, w].tolist())
+                    assert run.start >= vals.start and run.stop <= vals.stop or not owned
                     # each owned bin's upper knot is the next lane's knot
                     assert all(b in ks and b + 1 in ks for b in owned)
                     for b in owned:
                         for side in (0, 1):
                             slots[p.partial_index(ex, side, split, b)] += 1
-                        for v in vals:
+                        for v in run:
                             bins[ex, v, b] += 1
     return bins, slots
+
+
+def _head_values(n, m, d, seed=0):
+    """f32 head knots [n, d+1] (about +-7.4 ADU), values spread past them,
+    sorted, and s = 0.3 per example."""
+    g = torch.Generator().manual_seed(seed)
+    knots = _knots("head", n, d, seed).float()
+    x = torch.randn(n, m, generator=g) * 12.0
+    return knots, torch.sort(x, dim=1).values, torch.full((n, 1), 0.3)
+
+
+@pytest.mark.parametrize("n,m,d", PLAN_SHAPES)
+def test_plan_covers_every_pair_in_the_windows_once(n, m, d):
+    """With the windows and runs of sorted values: every pair inside them
+    once, no other, the knots of each walked tile once, and as many pairs
+    as ``walked_pairs`` says the kernels count."""
+    p = PC.plan(n, m, d)
+    knots, xs, s = _head_values(n, m, d)
+    win, runs = PC.fwd_windows(knots, xs, s), PC.bwd_runs(knots, xs, s)
+    assert (win[..., 0] <= win[..., 1]).all()
+    inside = {(ex, v, k) for ex in range(n) for b in range(p.fwd_blocks)
+              for v in p.fwd_values(b) for ks in range(p.knot_splits)
+              for k in range(*win[ex, b, ks].tolist())}
+    assert all(p.fwd_bins(ks).start <= win[ex, b, ks, 0] and
+               win[ex, b, ks, 1] <= p.fwd_bins(ks).stop
+               for ex in range(n) for b in range(p.fwd_blocks) for ks in range(p.knot_splits))
+    knots_seen, bins = _pairs_fwd(p, win)
+    assert set(bins) == inside and set(bins.values()) <= {1}
+    assert all((ex, v, k) in knots_seen for ex, v, k in inside)
+    assert all((ex, v, k + 1) in knots_seen for ex, v, k in inside)
+    bins_b, slots = _pairs_bwd(p, runs)
+    assert set(bins_b.values()) <= {1} and sorted(slots) == list(range(p.n_partials))
+    assert PC.walked_pairs(knots, xs, s) == (len(bins), len(bins_b))
 
 
 @pytest.mark.parametrize("n,m,d", PLAN_SHAPES)
@@ -131,10 +178,14 @@ def test_plan_constants_are_the_sources():
     """The Python mirror's constants equal the .cu's constexprs."""
     src = PC.SOURCE.read_text()
     names = ("FWD_THREADS", "FWD_VALUES", "KNOT_TILE", "FOLD", "BWD_WARPS", "WARP_BINS",
-             "FINAL_THREADS")
+             "FINAL_THREADS", "GRAD_WARPS")
     for name in names:
         got = re.search(rf"constexpr int {name} = (\d+);", src)
         assert got and int(got.group(1)) == getattr(PC, name), name
+    got = re.search(r"constexpr float REACH = ([0-9.]+)f;", src)
+    assert got and float(got.group(1)) == PC.REACH
+    got = re.search(r"constexpr float RSQ2 = ([0-9.]+)f;", src)
+    assert got and float(got.group(1)) == PC.RSQ2
     assert re.search(r"constexpr int CHUNK = BWD_THREADS;", src)
     assert re.search(r"constexpr int BWD_THREADS = 32 \* BWD_WARPS;", src)
     assert PC.CHUNK == 32 * PC.BWD_WARPS
@@ -178,13 +229,12 @@ _NARROW_BIN = 0.05
 _WIDTH_FLOOR = 1e-8
 
 
-def core_grad_plain(knots: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
-                    g: torch.Tensor) -> torch.Tensor:
-    """dL/dknots ``[n, d+1]`` from ``g = dL/dcore [n, m]``, by the backward
-    kernel's formulas (``proxy_core_bwd_kernel``, ``wide_grad``,
-    ``narrow_grad``), one line for each, dense over ``[n, m, d]`` bins, in
-    any dtype."""
-    x, s, g = x[..., None], torch.broadcast_to(s, x.shape)[..., None], g[..., None]
+def bin_grads(knots: torch.Tensor, x: torch.Tensor, s: torch.Tensor) -> tuple:
+    """Each bin's share of d core / d v_k and d core / d v_{k+1} (times d),
+    ``[n, m, d]`` each, by the backward kernel's formulas
+    (``proxy_core_bwd_kernel``, ``wide_grad``, ``narrow_grad``), one line
+    for each, in any dtype."""
+    x, s = x[..., None], torch.broadcast_to(s, x.shape)[..., None]
     kn = knots[:, None, :]
     inv = (1.0 / s) * _RSQ2
     c = inv * _RSQPI
@@ -215,8 +265,16 @@ def core_grad_plain(knots: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
     dw_narrow = ec * (2.0 * m2 - 1.0) * hcoef
     ga_narrow, gb_narrow = dm - dw_narrow, dm + dw_narrow
     narrow = h < _NARROW_BIN
-    ga = torch.where(narrow, ga_narrow, ga_wide)
-    gb = torch.where(narrow, gb_narrow, gb_wide)
+    return torch.where(narrow, ga_narrow, ga_wide), torch.where(narrow, gb_narrow, gb_wide)
+
+
+def core_grad_plain(knots: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """dL/dknots ``[n, d+1]`` from ``g = dL/dcore [n, m]``, by the backward
+    kernel's formulas (:func:`bin_grads`), dense over ``[n, m, d]`` bins, in
+    any dtype."""
+    ga, gb = bin_grads(knots, x, s)
+    g = g[..., None]
     # sums over the values, then proxy_core_grad_kernel's sum of both sides
     lo = torch.sum(g * ga, dim=1)
     hi = torch.sum(g * gb, dim=1)
@@ -327,3 +385,161 @@ def test_cpu_calls_take_the_plain_path(grad_of):
     assert "proxy.core_fwd" not in counters and "proxy.core_bwd" not in counters
     assert PC.launches == launches
     assert PC._library.cache_info().currsize == 0
+
+
+# name: (knot kind, n, m, d, s, values): 'spread' N(0, 12 ADU); 'ties' whole
+# ADU, a third far outside the knots, some on knots; 'recipe' N(0, 3 ADU) in
+# whole ADU, the pgrq frames' steps
+WINDOW_CASES = {
+    "narrow": ("narrow", 2, 3000, 200, 0.6, "spread"),
+    "wide": ("wide", 2, 1500, 120, 0.2, "spread"),
+    "mixed": ("mixed", 1, 2000, 257, 0.3, "spread"),
+    "outside_and_ties": ("head", 2, 1800, 300, 0.3, "ties"),
+    "ragged_examples": ("head", 3, 1300, 100, 0.3, "spread"),
+    "recipe_sampled": ("head", 1, 4 * 512 * 512, 1024, 0.3, "recipe"),
+}
+
+
+def _window_case(name):
+    kind, n, m, d, s, values = WINDOW_CASES[name]
+    g = torch.Generator().manual_seed(list(WINDOW_CASES).index(name))
+    knots = _knots(kind, n, d, 7).float()
+    if values == "spread":
+        x = torch.randn(n, m, generator=g) * 12.0
+    elif values == "recipe":
+        x = torch.round(torch.randn(n, m, generator=g) * 3.0)
+    else:
+        x = torch.round(torch.randn(n, m, generator=g) * 4.0)
+        u = torch.rand(n, m, generator=g)
+        far = (knots[:, -1:] - knots[:, :1]) + 10.0 ** (1 + 3 * u)
+        x = torch.where(u < 1 / 3, torch.where(u < 1 / 6, -far, far), x)
+        x[:, :40] = knots[:, 5:45]
+    return knots, x, torch.full((n, 1), s)
+
+
+def _bin_terms(knots, x, s):
+    """Each bin's term of ``_core_conv`` (before the sum), ``[n, m, d]``:
+    its own arithmetic, one bin at a time."""
+    pairs = torch.stack([knots[:, :-1], knots[:, 1:]], -1)[:, None]  # [n, 1, d, 2]
+    return QuantileHead._core_conv(pairs, x[..., None, None],
+                                   torch.broadcast_to(s[..., None, None], x.shape + (1, 1)))
+
+
+@pytest.mark.parametrize("name", list(WINDOW_CASES))
+def test_windows_hold_every_nonzero_term(name):
+    """Every (value, bin) pair whose term in ``_core_conv``'s f32 arithmetic
+    is nonzero lies in its block's window, and every one whose knot
+    gradient by the backward's formulas is nonzero lies in its warp's run;
+    the windows leave pairs out."""
+    knots, x, s = _window_case(name)
+    n, m = x.shape
+    d = knots.shape[1] - 1
+    p = PC.plan(n, m, d)
+    xs, _ = PC.order_of(x, s)
+    win, runs = PC.fwd_windows(knots, xs, s), PC.bwd_runs(knots, xs, s)
+    g = torch.Generator().manual_seed(1)
+    idx = torch.arange(m) if m <= 2048 else torch.cat([
+        torch.randint(0, m, (1000,), generator=g),
+        torch.arange(0, m, PC.FWD_THREADS * PC.FWD_VALUES), torch.tensor([m - 1])])
+    xv = xs[:, idx]
+    bins = torch.arange(d)
+    terms = _bin_terms(knots, xv, s)
+    w = win[:, idx // (PC.FWD_THREADS * PC.FWD_VALUES)][:, :, bins // p.split_bins]
+    assert ((terms == 0) | ((bins >= w[..., 0]) & (bins < w[..., 1]))).all()
+    ga, gb = bin_grads(knots, xv, s)
+    gw = bins // PC.WARP_BINS
+    r = runs[:, idx // p.split_values][:, :, gw // PC.BWD_WARPS, gw % PC.BWD_WARPS]
+    v = idx[None, :, None]
+    assert (((ga == 0) & (gb == 0)) | ((v >= r[..., 0]) & (v < r[..., 1]))).all()
+    assert (terms != 0).any() and (ga != 0).any()
+    fwd, bwd = PC.walked_pairs(knots, xs, s)
+    assert fwd < n * m * d and bwd < n * m * d
+
+
+@pytest.mark.parametrize("name", [k for k in WINDOW_CASES if k != "recipe_sampled"])
+def test_windowed_walk_sums_every_value_bit_for_bit(name):
+    """The forward's sum of each value (groups of FOLD bins by bin index,
+    the groups added in order, the splits added in order) over its block's
+    window, which starts and ends inside such groups, is bit for bit the
+    sum over every bin: the terms left out are +-0.0 and the sum is never
+    -0.0."""
+    knots, x, s = _window_case(name)
+    n, m = x.shape
+    d = knots.shape[1] - 1
+    p = PC.plan(n, m, d)
+    xs, _ = PC.order_of(x, s)
+    terms = _bin_terms(knots, xs, s)
+    win = PC.fwd_windows(knots, xs, s)[:, torch.arange(m) // (PC.FWD_THREADS * PC.FWD_VALUES)]
+
+    def walk(windowed):
+        out = torch.zeros(n, m)
+        for ks in range(p.knot_splits):
+            b0 = p.fwd_bins(ks).start
+            tot, acc = torch.zeros(n, m), torch.zeros(n, m)
+            for b in p.fwd_bins(ks):
+                on = ((b >= win[..., ks, 0]) & (b < win[..., ks, 1]) if windowed
+                      else torch.ones(n, m, dtype=torch.bool))
+                acc = torch.where(on, acc + terms[..., b], acc)
+                if (b + 1 - b0) % PC.FOLD == 0:
+                    tot = torch.where(on, tot + acc, tot)
+                    acc = torch.where(on, 0.0, acc)
+            out = out + (tot + acc) if p.knot_splits > 1 else tot + acc
+        return out
+
+    full, windowed = walk(False), walk(True)
+    assert torch.equal(full, windowed)
+    assert not (torch.signbit(full) & (full == 0)).any()  # never -0.0
+    assert (win[..., 1] - win[..., 0] < torch.tensor([len(p.fwd_bins(ks)) for ks in
+                                                       range(p.knot_splits)])).any()
+
+
+def test_order_of_sorts_each_example_stably():
+    x = torch.tensor([[3.0, 1.0, 3.0, 0.0, 1.0], [2.0, 2.0, -1.0, 5.0, 2.0]])
+    xs, perm = PC.order_of(x, torch.ones(2, 1))
+    assert xs.tolist() == [[0, 1, 1, 3, 3], [-1, 2, 2, 2, 5]]
+    assert perm.tolist() == [[3, 1, 4, 0, 2], [2, 0, 1, 4, 3]]
+    per_value = PC.order_of(x, torch.ones(2, 5))
+    assert per_value[0] is x and per_value[1] is None
+
+
+def test_windows_walk_every_pair_where_s_varies_per_value():
+    knots, x, _ = _window_case("wide")
+    s = torch.full(x.shape, 0.2)
+    n, m = x.shape
+    d = knots.shape[1] - 1
+    assert PC.walked_pairs(knots, x, s) == (n * m * d, n * m * d)
+
+
+def test_replays_count_the_pairs_their_graph_walks():
+    """A replayed graph's launches count their full grids and a copy of
+    its walked counter as the replay left it, only while tracing."""
+    held = {"fwd": 1, "bwd": 1, "pairs": 200, "walked": torch.tensor(65)}
+    profiling.reset()
+    PC.replayed(held)
+    assert profiling.snapshot()["counters"] == {}
+    with profiling.enable():
+        PC.replayed(held)
+        PC.replayed(held)
+    held["walked"].fill_(0)  # the next replay's value
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters["proxy.core_pairs"] == 400 and counters["proxy.core_pairs_walked"] == 130
+    assert counters["proxy.core_fwd"] == counters["proxy.core_bwd"] == 2
+
+
+def test_core_walked_share_reads_the_counters():
+    from portbench.harness import ROOT, load_module
+
+    read = load_module(ROOT / "metrics" / "core_walked_share.proxy.py",
+                       "core_walked_share.proxy").read
+    profiling.reset()
+    assert read(None) is None
+    with profiling.enable():
+        profiling.count("proxy.core_pairs", 400)
+        profiling.count_device("proxy.core_pairs_walked", torch.tensor(130))
+    assert read(None) == 100.0 * 130 / 400
+    profiling.reset()
+    with profiling.enable():
+        profiling.count("proxy.core_pairs", 400)
+    assert read(None) is None
+    profiling.reset()
